@@ -1,12 +1,11 @@
 #!/usr/bin/env python3
-"""Regime throughput sweep: runs bench.py once per scoring regime
-(serial subprocesses - the chip is single-tenant) and writes
-benchmarks/regimes.json with one entry per regime, device-stamped.
-
-The regime set mirrors BENCH_NOTES.md's table; the north-star is
->=50 steps/s at 102,400 particles in EVERY regime (BASELINE.md).
+"""Regime throughput sweep: runs bench.py once per scoring regime in
+serial subprocesses (one process on the GPU at a time) and prints each
+regime's JSON lines, device-stamped.
 
 Run: python benchmarks/bench_regimes.py [--regimes a,b] [--steps N]
+     [--ab]   (fast path vs exact gather in every regime, bench.py
+               BENCH_AB=1)
 """
 
 import argparse
@@ -19,9 +18,9 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 REGIMES = {
-    # converged serving regime (headline)
+    # converged serving regime (conv cost field)
     "converged_conv": {},
-    # spread cloud, tracked thetas (full window crop kernel)
+    # spread cloud, tracked thetas (crop path, every rotation shift)
     "spread_tracked": {"BENCH_EXTENT": "0", "BENCH_THETA_SPREAD": "0"},
     # spread cloud, 40-way theta search (global init)
     "spread_init": {
@@ -46,21 +45,17 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--regimes", default=",".join(REGIMES))
     ap.add_argument("--steps", default=None)
-    ap.add_argument("--timeout", type=int, default=3000)
+    ap.add_argument("--ab", action="store_true")
+    ap.add_argument("--timeout", type=int, default=1800)
     args = ap.parse_args()
 
-    out = {}
-    path = os.path.join(ROOT, "benchmarks", "regimes.json")
-    if os.path.exists(path):
-        try:
-            with open(path) as f:
-                out = json.load(f)
-        except json.JSONDecodeError:
-            pass
+    failed = []
     for name in args.regimes.split(","):
         env = dict(os.environ, **REGIMES[name])
         if args.steps:
             env["BENCH_STEPS"] = args.steps
+        if args.ab:
+            env["BENCH_AB"] = "1"
         t0 = time.perf_counter()
         p = subprocess.run(
             [sys.executable, os.path.join(ROOT, "bench.py")],
@@ -68,30 +63,19 @@ def main():
             timeout=args.timeout,
         )
         lines = [
-            l for l in p.stdout.splitlines() if l.startswith("{")
+            ln for ln in p.stdout.splitlines() if ln.startswith("{")
         ]
         if p.returncode != 0 or not lines:
-            print(f"[regimes] {name} FAILED:\n{p.stdout}\n{p.stderr}",
-                  file=sys.stderr)
-            out[name] = {"error": p.returncode}
+            print(f"[regimes] {name} FAILED (rc {p.returncode}):\n"
+                  f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}",
+                  file=sys.stderr, flush=True)
+            failed.append(name)
             continue
-        r = json.loads(lines[-1])
-        out[name] = {
-            "steps_per_s": r["value"],
-            "step_ms": r["extra"]["step_ms"],
-            "path": r["extra"]["path"],
-            "device": r["extra"]["device"],
-            "knobs": REGIMES[name],
-            "wall_s": round(time.perf_counter() - t0, 1),
-        }
-        print(json.dumps({name: out[name]}), flush=True)
-        with open(path, "w") as f:
-            json.dump(out, f, indent=1)
-    worst = min(
-        (v["steps_per_s"] for v in out.values() if "steps_per_s" in v),
-        default=None,
-    )
-    print(json.dumps({"worst_regime_steps_per_s": worst}))
+        for ln in lines:
+            print(json.dumps({"regime": name, "wall_s":
+                              time.perf_counter() - t0,
+                              **json.loads(ln)}), flush=True)
+    sys.exit(1 if failed else 0)
 
 
 if __name__ == "__main__":

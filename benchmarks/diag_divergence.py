@@ -13,7 +13,10 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tdr")
+from top_down_renderer_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
+
 
 import numpy as np
 

@@ -13,7 +13,10 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tdr")
+from top_down_renderer_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
+
 
 import numpy as np
 
@@ -237,6 +240,8 @@ def main():
                 [sys.executable, os.path.abspath(__file__),
                  "--configs", "1"],
                 capture_output=True, text=True, check=True,
+                # the child never opens the GPU (one process per card)
+                env=dict(os.environ, JAX_PLATFORMS="cpu"),
             )
             line = [
                 l for l in p.stdout.splitlines() if l.startswith("{")

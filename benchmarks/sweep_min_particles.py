@@ -1,4 +1,4 @@
-"""Minimum-reliable-particle-count sweep (VERDICT r4 weak #5).
+"""Minimum-reliable-particle-count sweep.
 
 Runs the closed-loop drive at descending particle counts per regime
 (city, city_hard, unknown-scale) and records, per N: runs converged,
@@ -27,8 +27,10 @@ import time
 _here = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, _here)
 sys.path.insert(0, os.path.dirname(_here))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tdr")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from top_down_renderer_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
+
 
 import numpy as np
 

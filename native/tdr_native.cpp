@@ -1,4 +1,4 @@
-// tdr-tpu native host library: SVG vector-map parsing + even-odd
+// tdr native host library: SVG vector-map parsing + even-odd
 // polygon rasterization.
 //
 // Host-native counterpart of the reference's map-loading path: vendored

@@ -89,14 +89,14 @@ def main():
 
         rospy.init_node("top_down_render")
         shim = RosShim(node)
-        print("[tdr-tpu] node up (ROS)")
+        print("[tdr] node up (ROS)")
         shim.spin()
     elif args.bag:
         from top_down_renderer_tpu.io import Bag, replay
 
         rec = replay(node, Bag.load(args.bag))
         print(
-            f"[tdr-tpu] replay done: {rec['n_scans']} scans, "
+            f"[tdr] replay done: {rec['n_scans']} scans, "
             f"{len(rec['poses'])} poses, converged="
             f"{rec['first_converged_stamp'] is not None}"
         )

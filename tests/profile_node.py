@@ -1,11 +1,9 @@
 """Dev probe: host-vs-device split of the node loop on the city bag.
 
-The TPU city drive measured ~0.48 s/scan at 20k particles while the
-pure-filter headline is 7.65 ms/step - this probe splits a 60-scan
-drive into render / filter / publish / host-rest to find where the
-node loop's time goes.
+Splits a 60-scan city drive into render / filter / publish / host-rest
+to find where the node loop's time goes beyond the device step.
 
-Run: python tests/profile_node.py  (TPU, warm cache; ~2 min)
+Run: python tests/profile_node.py  (GPU; ~2 min)
 """
 
 import os
@@ -16,8 +14,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "benchmarks"))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tdr")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from top_down_renderer_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
+
 
 import numpy as np
 

@@ -6,7 +6,6 @@ import jax
 import jax.numpy as jnp
 
 from top_down_renderer_tpu.filter import conv_score as cs
-from top_down_renderer_tpu.filter import pallas_score as ps
 from top_down_renderer_tpu.filter.scoring import (
     rotation_shift,
     score_all_rotations,
@@ -35,9 +34,9 @@ def _setup(seed=0, h=256, w=256, n=512):
 
 def test_conv_tracked_matches_exact():
     f = 1.0  # integer f + integer centers -> identical NN sampling
-    mo = ps.pick_crop_size(f, R)
+    mo = cs.pick_crop_size(f, R, cs.MO_BUCKETS_CONV)
     packed, stencil, scan, cw, centers, thetas = _setup()
-    maps = ps.build_padded_maps(jnp.asarray(packed))
+    maps = cs.build_padded_maps(jnp.asarray(packed))
     scorer = cs.make_conv_scorer(mo, 64, "tracked")
     alive = jnp.ones(len(centers), bool)
     num, den, kf = scorer(
@@ -70,9 +69,9 @@ def test_conv_tracked_matches_exact():
 
 def test_conv_init_matches_exact():
     f = 1.0
-    mo = ps.pick_crop_size(f, R)
+    mo = cs.pick_crop_size(f, R, cs.MO_BUCKETS_CONV)
     packed, stencil, scan, cw, centers, thetas = _setup(seed=1)
-    maps = ps.build_padded_maps(jnp.asarray(packed))
+    maps = cs.build_padded_maps(jnp.asarray(packed))
     scorer = cs.make_conv_scorer(mo, 64, "init")
     alive = jnp.ones(len(centers), bool)
     nums, dens, kf = scorer(
@@ -95,9 +94,9 @@ def test_conv_init_matches_exact():
 
 def test_region_origin_ignores_dead_particles():
     f = 1.0
-    mo = ps.pick_crop_size(f, R)
+    mo = cs.pick_crop_size(f, R, cs.MO_BUCKETS_CONV)
     packed, stencil, scan, cw, centers, thetas = _setup(seed=2, n=64)
-    maps = ps.build_padded_maps(jnp.asarray(packed))
+    maps = cs.build_padded_maps(jnp.asarray(packed))
     scorer = cs.make_conv_scorer(mo, 64, "tracked")
     alive = jnp.ones(64, bool)
     # a dead outlier far away must not shift the region
@@ -130,7 +129,7 @@ def test_s2d_field_matches_direct():
         rng.standard_normal((dr, dc, 8, s_out)), jnp.bfloat16
     )
     packed = jnp.asarray(rng.random((200, 200, 8)), jnp.float32)
-    maps = ps.build_padded_maps(packed)
+    maps = cs.build_padded_maps(packed)
     nxb = region // cs.F_S2D + 1
     for oy, ox in [(20, 20), (21, 34), (23, 33), (50, 17)]:
         origin = jnp.asarray([oy + maps.pad, ox + maps.pad])
@@ -192,9 +191,9 @@ def test_kf_split_matches_combined(monkeypatch):
     same k4 columns contracted over the same patches in the same f32
     order, and the kf column sees identical values."""
     f = 1.0
-    mo = ps.pick_crop_size(f, R)
+    mo = cs.pick_crop_size(f, R, cs.MO_BUCKETS_CONV)
     packed, stencil, scan, cw, centers, thetas = _setup(seed=5)
-    maps = ps.build_padded_maps(jnp.asarray(packed))
+    maps = cs.build_padded_maps(jnp.asarray(packed))
     alive = jnp.ones(len(centers), bool)
     # windowed tracked mode: pick s0 so every theta's shift falls in
     # [s0, s0+ww) modulo TH -- thetas drawn near a band
@@ -224,7 +223,7 @@ def test_kf_split_matches_combined(monkeypatch):
 
 
 def test_conv_int8_matches_bf16(monkeypatch):
-    """TDR_CONV_INT8=1 (int8 map4 x hi/lo int8 kernel, i32 MXU
+    """TDR_CONV_INT8=1 (int8 map4 x hi/lo int8 kernel, i32
     accumulation) vs the bf16 kf-split scorer.  The hi/lo residual
     pair keeps cost/norm within ~1e-3 (single-plane rounding measured
     a -4% cost bias: 39% of the all-positive cost coefficients sit
@@ -232,9 +231,9 @@ def test_conv_int8_matches_bf16(monkeypatch):
     (~5e-4 rel: same-count cells share one rounding error), so the
     kf<0.5 NaN gate is asserted only off the knife edge."""
     f = 1.0
-    mo = ps.pick_crop_size(f, R)
+    mo = cs.pick_crop_size(f, R, cs.MO_BUCKETS_CONV)
     packed, stencil, scan, cw, centers, thetas = _setup(seed=7)
-    maps = ps.build_padded_maps(jnp.asarray(packed))
+    maps = cs.build_padded_maps(jnp.asarray(packed))
     assert maps.padded4d_i8 is not None
     alive = jnp.ones(len(centers), bool)
     thetas = (0.3 + 0.8 * np.random.default_rng(7).random(

@@ -1,6 +1,5 @@
 """Host-side dispatch logic: shift-window derivation and fast-mode
-selection (pure host code, CPU-testable even though the fast kernels
-themselves only run on TPU)."""
+selection (pure host code)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -93,7 +92,8 @@ def test_fast_mode_selection():
 def test_fast_mode_mip_fallback():
     """scale*res beyond every crop/conv bucket -> mip-crop dispatch with
     the smallest power-of-2 level whose f/mip fits a bucket."""
-    from top_down_renderer_tpu.filter import pallas_score as ps
+    from top_down_renderer_tpu.filter import conv_score as cs
+    from top_down_renderer_tpu.filter import crop_score as crop
 
     pf = _pf(fixed_scale=2.0)
     # f = 2*2 = 4 -> mip 4 brings f_eff to 1.0 (mo 24)
@@ -101,7 +101,7 @@ def test_fast_mode_mip_fallback():
     assert out is not None
     mode, mo, scale, path, region, s0, ww, mip = out
     assert path == "crop" and mip == 4 and mo == 24
-    assert ps.pick_crop_size(scale * 2.0 / mip, 25) == mo
+    assert cs.pick_crop_size(scale * 2.0 / mip, 25, crop.MO_BUCKETS) == mo
     # f = 20 -> mip 32 (f_eff 0.625)
     out = pf._fast_mode(10.0)
     assert out is not None
@@ -111,7 +111,7 @@ def test_fast_mode_mip_fallback():
     pm4 = pf._get_padded_maps(4)
     assert pf._get_padded_maps(4) is pm4
     g = pf.map.grid.dist
-    assert pm4.hp == (g.shape[0] + 3) // 4 + 2 * ps.MAP_PAD
+    assert pm4.hp == (g.shape[0] + 3) // 4 + 2 * cs.MAP_PAD
     pf._map_version += 1
     pf._maps_cache.clear()
     assert pf._get_padded_maps(4) is not pm4
@@ -193,7 +193,7 @@ def test_scale_host_mirrors():
 
 def test_multi_saturating_gate_dead_slot_clamps():
     """A scale outlier past the weight gate (scale > 10^scale_log_max)
-    whose bucket saturates even mip-64 must NOT drop the step to the
+    whose bucket saturates even the coarsest mip must NOT drop the step to the
     exact gather: its weight is zeroed by weight_from_cost regardless
     of cost, so the slot is clamped onto the coarsest level."""
     import jax.numpy as jnp
@@ -201,7 +201,7 @@ def test_multi_saturating_gate_dead_slot_clamps():
     pf = _pf(fixed_scale=-1.0)
     p = pf.state.particles
     scales = np.full(p.scale.shape, 2.0, np.float32)
-    scales[:8] = 50.0  # past gate_hi = 10^1, saturates mip-64 at res 1
+    scales[:8] = 100.0  # past gate_hi = 10^1, saturates mip-128 at res 1
     pf.state = pf.state.replace(
         particles=p.replace(scale=jnp.asarray(scales))
     )
@@ -209,15 +209,15 @@ def test_multi_saturating_gate_dead_slot_clamps():
     assert out is not None and out[3] == "multi", pf._slow_reason
     slots = out[4]
     # the saturating slot was clamped to a representable scale
-    assert np.max(slots) < 50.0
+    assert np.max(slots) < 100.0
 
     # negative control: a saturating slot INSIDE the gate still falls
     # back (scoring it clamped would corrupt live weights)
     scales2 = np.full(p.scale.shape, 1.0, np.float32)
-    scales2[:8] = 8.0  # inside the gate; saturates at res 8
+    scales2[:8] = 8.0  # inside the gate; saturates at res 16
     pf.state = pf.state.replace(
         particles=p.replace(scale=jnp.asarray(scales2))
     )
-    out2 = pf._multi_mode(8.0)
+    out2 = pf._multi_mode(16.0)
     assert out2 is None
     assert "saturates" in (pf._slow_reason or "")

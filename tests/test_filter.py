@@ -93,7 +93,7 @@ def test_systematic_resample_proportional():
 
 def test_resample_scatter_matches_gather():
     """The scatter+forward-fill formulation (resample.py:
-    _segment_rows_scatter, the TPU descriptor-bound-gather workaround)
+    _segment_rows_scatter)
     must select byte-identical rows to the j-gather path across weight
     shapes: uniform, spiky, zero-prefix, partial n_active/n_new."""
     rng = np.random.default_rng(7)
@@ -219,69 +219,3 @@ def test_end_to_end_convergence():
     th_err = abs(np.arctan2(np.sin(ml[2] - psi_gt), np.cos(ml[2] - psi_gt)))
     assert pos_err_px < 8.0, (pos_err_px, errs)
     assert th_err < 0.3, (ml[2], psi_gt)
-
-
-def test_resample_pallas_fill_matches_gather():
-    """TDR_RESAMPLE=pallas (scatter starts + Pallas forward fill) must
-    reproduce the gather path exactly - rows are copied bit-for-bit
-    either way.  Cases cover multi-block carry (n > block), in-block
-    fill, degenerate all-weight-on-one-source, and n_new < n."""
-    rng = np.random.default_rng(7)
-    n = 512
-    p = _mk_particles(n, rng)
-    cases = []
-    w = rng.random(n).astype(np.float32)
-    cases.append((w / w.sum(), n, n))
-    w = np.zeros(n, np.float32)
-    w[3] = 0.9
-    w[400] = 0.1
-    cases.append((w, n, n))
-    w = np.zeros(n, np.float32)
-    w[100:200] = rng.random(100).astype(np.float32)
-    w /= w.sum()
-    cases.append((w, 300, 200))
-    w = np.zeros(n, np.float32)
-    w[0] = 1.0
-    cases.append((w, n, 1))
-    cases.append((np.zeros(n, np.float32), n, n))  # degenerate
-    for i, (w, n_new, n_act) in enumerate(cases):
-        key = jax.random.PRNGKey(200 + i)
-        a = systematic_resample(
-            p, jnp.asarray(w), jnp.asarray(n_new), jnp.asarray(n_act),
-            key,
-        )
-        b = systematic_resample(
-            p, jnp.asarray(w), jnp.asarray(n_new), jnp.asarray(n_act),
-            key, via="pallas", interpret=True,
-        )
-        for f in ("init_px", "d_m", "theta", "scale", "have_init",
-                  "weight", "last_dist", "alive"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(a, f)), np.asarray(getattr(b, f)),
-                err_msg=f"case {i} field {f}",
-            )
-    # multi-block carry: force several fill blocks
-    import top_down_renderer_tpu.filter.resample as rs
-
-    old = rs._FILL_L
-    rs._FILL_L = 128
-    try:
-        w = np.zeros(n, np.float32)
-        w[5] = 0.5
-        w[300] = 0.5  # 295-slot run crosses two block boundaries
-        a = systematic_resample(
-            p, jnp.asarray(w), jnp.asarray(n), jnp.asarray(n),
-            jax.random.PRNGKey(9),
-        )
-        b = systematic_resample(
-            p, jnp.asarray(w), jnp.asarray(n), jnp.asarray(n),
-            jax.random.PRNGKey(9), via="pallas", interpret=True,
-        )
-        np.testing.assert_array_equal(
-            np.asarray(a.init_px), np.asarray(b.init_px)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(a.theta), np.asarray(b.theta)
-        )
-    finally:
-        rs._FILL_L = old

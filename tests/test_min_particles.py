@@ -3,8 +3,8 @@
 The reference ships a 300-particle launch default and localizes with
 300-20,000 particles (/root/reference/launch/top_down_render.launch:22,
 top_down_render.cpp:53).  This framework's measured floors on the
-closed-loop city worlds (benchmarks/loc_results.json, BENCH_NOTES.md
-"Minimum reliable particle count"):
+closed-loop city worlds (earlier CPU and accelerator sweeps with
+benchmarks/sweep_min_particles.py):
 
   - city (known scale):       2,048  (mean err 2.3 m)
   - city_hard (occlusions):   2,048  (2 runs converged, ~4.9-6.8 m)

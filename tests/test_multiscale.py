@@ -1,11 +1,12 @@
-"""Interpret-mode parity tests for the unknown-scale multi-bucket scorer.
+"""Parity tests for the unknown-scale multi-bucket scorer.
 
 The multi-scale path (filter/multiscale.py) must reproduce, per bucket,
-exactly what the uniform-f crop scorer (filter/pallas_score.py) computes
-at that bucket's effective f on that bucket's mip level - the kernel,
-M build, and crop semantics are shared; only the variant key and the
-pyramid origin computation are new.  The uniform scorer is itself
-parity-tested against the exact gather (test_pallas_interpret.py), so
+exactly what the uniform-f crop scorer (filter/crop_score.py) computes
+at that bucket's effective f on that bucket's mip level - the kernel
+build and window semantics are shared; only the bucket-major chunk
+order and the pyramid origin computation are new.  The uniform scorer
+is itself parity-tested against the exact gather
+(test_pallas_interpret.py), so
 bucket-equality here closes the chain back to the reference
 (/root/reference/src/state_particle.cpp:112-219 at the init regime's
 log-uniform scales, particle_filter.cpp:19-84)."""
@@ -14,15 +15,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
+from top_down_renderer_tpu.filter import conv_score as cs
+from top_down_renderer_tpu.filter import crop_score as crop
 from top_down_renderer_tpu.filter import multiscale as ms
-from top_down_renderer_tpu.filter import pallas_score as ps
 from top_down_renderer_tpu.filter.scoring import rotation_shift
 from top_down_renderer_tpu.maps.polar import polar_stencil
 
 H = W = 256
 C = 3
 TH, R = 100, 25
-MO = 12  # f_eff = 0.5 everywhere -> small crops keep interpret fast
+MO = 12  # f_eff = 0.5 everywhere -> small windows keep the test fast
 
 
 def test_cluster_scales_init_population():
@@ -196,20 +198,16 @@ def setup():
 
 
 def _uniform_ref_init(packed, stencil, scan, cw, centers, mip, f_eff):
-    maps = ps.build_padded_maps(jnp.asarray(packed[::mip, ::mip]))
-    return ps.score_init_fast_mo(
+    maps = cs.build_padded_maps(jnp.asarray(packed[::mip, ::mip]))
+    return crop.score_init(
         maps, jnp.asarray(stencil), jnp.asarray(scan), cw,
-        jnp.asarray(centers), f_eff, MO,
-        map_resolution=float(mip), interpret=True,
+        jnp.asarray(centers), f_eff, MO, map_resolution=float(mip),
     )
 
 
-def test_multi_init_bucket_parity(setup, monkeypatch):
+def test_multi_init_bucket_parity(setup):
     packed, stencil, scan, cw, pyr, slot_vals, centers, scale = setup
-    monkeypatch.setattr(ps, "init_p_tile", lambda mo, **kw: 16)
-    score = ms.make_score_init_multi(
-        2, (0, 1), interpret=True, mo=MO
-    )
+    score = ms.make_score_init_multi((0, 1), mo=MO)
     costs, norms, kf = score(
         pyr, jnp.asarray(stencil), jnp.asarray(scan), cw,
         jnp.asarray(centers), jnp.asarray(scale),
@@ -236,30 +234,43 @@ def test_multi_init_bucket_parity(setup, monkeypatch):
         )
 
 
-def test_multi_init_sel_matches_host_epilogue(setup, monkeypatch):
-    """sel=True multi init (in-kernel select_init_cost) must equal the
-    sel=False rows through the host epilogue it replaces (exact: same
-    kernel accumulator, same f32 ops)."""
-    from top_down_renderer_tpu.filter.filter import select_init_cost
+def test_multi_init_sel_matches_host_epilogue(setup):
+    """The unknown-scale step's init scoring (filter.make_multi_cost)
+    must equal the multi scorer's rows fed through the host epilogue
+    (nums/dens, kf<0.5 -> NaN, select_init_cost) - exact: same rows,
+    same f32 ops."""
+    from top_down_renderer_tpu.config import FilterParams
+    from top_down_renderer_tpu.core.grids import Particles
+    from top_down_renderer_tpu.filter.filter import (
+        make_multi_cost,
+        select_init_cost,
+    )
 
     packed, stencil, scan, cw, pyr, slot_vals, centers, scale = setup
-    monkeypatch.setattr(ps, "init_p_tile", lambda mo, **kw: 16)
     args = (
         pyr, jnp.asarray(stencil), jnp.asarray(scan), cw,
         jnp.asarray(centers), jnp.asarray(scale),
         jnp.asarray(slot_vals), jnp.asarray(1.0, jnp.float32),
     )
-    nums, dens, kf = ms.make_score_init_multi(
-        2, (0, 1), interpret=True, mo=MO
-    )(*args)
+    nums, dens, kf = ms.make_score_init_multi((0, 1), mo=MO)(*args)
     costs = jnp.asarray(nums) / jnp.asarray(dens)
     costs = jnp.where(jnp.asarray(kf)[:, None] < 0.5, jnp.nan, costs)
     ref_cost, ref_theta = select_init_cost(costs, 40)
 
-    got_cost, got_theta, got_kf = ms.make_score_init_multi(
-        2, (0, 1), interpret=True, mo=MO, sel=True
-    )(*args)
-    np.testing.assert_array_equal(np.asarray(got_kf), np.asarray(kf))
+    n = len(centers)
+    p = Particles(
+        init_px=jnp.asarray(centers), d_m=jnp.zeros((n, 2)),
+        theta=jnp.zeros(n), scale=jnp.asarray(scale),
+        have_init=jnp.zeros(n, bool), weight=jnp.ones(n) / n,
+        last_dist=jnp.ones(n), alive=jnp.ones(n, bool),
+    )
+    cost_fn = make_multi_cost(
+        FilterParams(fixed_scale=-1.0), cw, "init", (0, 1), 1.0, MO
+    )
+    got_cost, got_theta = cost_fn(
+        p, pyr, jnp.asarray(stencil), jnp.asarray(scan),
+        jnp.asarray(1.0, jnp.float32), jnp.asarray(slot_vals),
+    )
     np.testing.assert_array_equal(
         np.asarray(got_cost), np.asarray(ref_cost)
     )
@@ -268,15 +279,12 @@ def test_multi_init_sel_matches_host_epilogue(setup, monkeypatch):
     )
 
 
-def test_multi_tracked_bucket_parity(setup, monkeypatch):
+def test_multi_tracked_bucket_parity(setup):
     packed, stencil, scan, cw, pyr, slot_vals, centers, scale = setup
-    monkeypatch.setattr(ps, "tracked_p_tile", lambda mo, **kw: 16)
     rng = np.random.default_rng(9)
     n = len(centers)
     thetas = (rng.random(n) * 2 * np.pi).astype(np.float32)
-    score = ms.make_score_tracked_multi(
-        2, (0, 1), interpret=True, mo=MO
-    )
+    score = ms.make_score_tracked_multi((0, 1), mo=MO)
     cost, norm, kf = score(
         pyr, jnp.asarray(stencil), jnp.asarray(scan), cw,
         jnp.asarray(centers), jnp.asarray(thetas),
@@ -287,13 +295,13 @@ def test_multi_tracked_bucket_parity(setup, monkeypatch):
     for k, (mip, sv) in enumerate(zip((1, 2), slot_vals)):
         sel = scale == sv
         f_eff = sv * 1.0 / mip
-        maps = ps.build_padded_maps(
+        maps = cs.build_padded_maps(
             jnp.asarray(packed[::mip, ::mip])
         )
-        cr, nr, kr = ps.score_tracked_fast_mo(
+        cr, nr, kr = crop.score_tracked(
             maps, jnp.asarray(stencil), jnp.asarray(scan), cw,
             jnp.asarray(centers[sel]), jnp.asarray(thetas[sel]),
-            f_eff, MO, map_resolution=float(mip), interpret=True,
+            f_eff, MO, map_resolution=float(mip),
         )
         np.testing.assert_allclose(
             cost[sel], np.asarray(cr), rtol=2e-3, atol=1e-3,
@@ -309,19 +317,17 @@ def test_multi_tracked_bucket_parity(setup, monkeypatch):
         )
 
 
-def test_pyramid_level_bounds(setup, monkeypatch):
-    """A center whose mip-2 crop would cross the coarse level's top edge
-    must be flagged out-of-range (kf 0) - never silently read the zero
-    pad (or worse, a neighboring pyramid level's rows)."""
+def test_pyramid_level_bounds(setup):
+    """A center whose mip-2 window lies off the coarse level's top edge
+    must read only zeros (kf 0) - never a neighboring pyramid level's
+    rows."""
     packed, stencil, scan, cw, pyr, slot_vals, centers, scale = setup
-    monkeypatch.setattr(ps, "init_p_tile", lambda mo, **kw: 16)
-    # mip-2 level is 128 px + 2*64 pad; a center at y= -100 px maps to
-    # cy2 = -50 -> y0l = -50 - 16 + 64 < 0 -> out of range
+    # the mip-2 level sits below the mip-1 level in the pyramid; a
+    # center at y = -100 px maps to cy2 = -50, whose whole stencil is
+    # above the level
     bad = np.array([[64.0, -100.0], [64.0, 64.0]], np.float32)
     scl = np.array([1.0, 1.0], np.float32)  # both bucket 1 (mip 2)
-    score = ms.make_score_init_multi(
-        2, (0, 1), interpret=True, mo=MO
-    )
+    score = ms.make_score_init_multi((0, 1), mo=MO)
     costs, norms, kf = score(
         pyr, jnp.asarray(stencil), jnp.asarray(scan), cw,
         jnp.asarray(bad), jnp.asarray(scl),
@@ -330,70 +336,3 @@ def test_pyramid_level_bounds(setup, monkeypatch):
     kf = np.asarray(kf)
     assert kf[0] == 0.0
     assert kf[1] > 0.5
-
-
-def test_multi_int4_bucket_parity(monkeypatch):
-    """TDR_MAP_INT4=1 pyramid: the K-bucket multi scorers must match
-    the uniform int4 scorers per bucket.  The per-channel maxima are
-    planted at (0, 0) (kept by every [::mip] subsample) so the pyramid
-    (quantize-then-subsample) and the uniform reference
-    (subsample-then-quantize) see identical quantized values."""
-    monkeypatch.setenv("TDR_MAP_INT4", "1")
-    monkeypatch.setattr(ps, "init_p_tile", lambda mo, **kw: 16)
-    monkeypatch.setattr(ps, "tracked_p_tile", lambda mo, **kw: 16)
-    packed, stencil, scan, cw, rng = _world(seed=9)
-    packed[0, 0, :C] = packed[..., :C].max() + 1.0
-    packed[0, 0, C] = 1.0
-    slot_vals = np.array([0.5, 1.0], np.float32)
-    pyr = ms.build_pyramid_maps(jnp.asarray(packed), (1, 2))
-    assert pyr.i4
-    n = 96
-    centers = rng.integers(48, 200, (n, 2)).astype(np.float32)
-    scale = np.where(rng.random(n) < 0.5, 0.5, 1.0).astype(np.float32)
-
-    score = ms.make_score_init_multi(2, (0, 1), interpret=True, mo=MO)
-    costs, norms, kf = map(np.asarray, score(
-        pyr, jnp.asarray(stencil), jnp.asarray(scan), cw,
-        jnp.asarray(centers), jnp.asarray(scale),
-        jnp.asarray(slot_vals), jnp.asarray(1.0, jnp.float32),
-    ))
-    for k, (mip, sv) in enumerate(zip((1, 2), slot_vals)):
-        sel = scale == sv
-        cr, nr, kr = _uniform_ref_init(
-            packed, stencil, scan, cw, centers[sel], mip, sv / mip
-        )
-        np.testing.assert_allclose(
-            costs[sel], np.asarray(cr), rtol=2e-3, atol=1e-3,
-            err_msg=f"int4 bucket {k} costs",
-        )
-        np.testing.assert_allclose(
-            kf[sel], np.asarray(kr), atol=1e-3,
-            err_msg=f"int4 bucket {k} kf",
-        )
-
-    tscore = ms.make_score_tracked_multi(2, (0, 1), interpret=True,
-                                         mo=MO)
-    thetas = (rng.random(n) * 2 * np.pi).astype(np.float32)
-    tc, tn, tk = map(np.asarray, tscore(
-        pyr, jnp.asarray(stencil), jnp.asarray(scan), cw,
-        jnp.asarray(centers), jnp.asarray(thetas), jnp.asarray(scale),
-        jnp.asarray(slot_vals), jnp.asarray(1.0, jnp.float32),
-    ))
-    for k, (mip, sv) in enumerate(zip((1, 2), slot_vals)):
-        sel = scale == sv
-        maps_u = ps.build_padded_maps(
-            jnp.asarray(packed[::mip, ::mip])
-        )
-        cu, nu, ku = ps.score_tracked_fast_mo(
-            maps_u, jnp.asarray(stencil), jnp.asarray(scan), cw,
-            jnp.asarray(centers[sel]), jnp.asarray(thetas[sel]),
-            sv / mip, MO, map_resolution=float(mip), interpret=True,
-        )
-        np.testing.assert_allclose(
-            tc[sel], np.asarray(cu), rtol=2e-3, atol=1e-3,
-            err_msg=f"int4 tracked bucket {k} costs",
-        )
-        np.testing.assert_allclose(
-            tk[sel], np.asarray(ku), atol=1e-3,
-            err_msg=f"int4 tracked bucket {k} kf",
-        )

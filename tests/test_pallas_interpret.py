@@ -1,33 +1,39 @@
-"""Interpret-mode (CPU) parity tests for the Pallas crop kernel.
+"""Parity tests for the crop scorer (filter/crop_score.py).
 
-Runs filter/pallas_score.py's kernel under pl.pallas_call(interpret=True)
-and compares against the exact-gather parity reference
-(filter/scoring.py::score_all_rotations), covering:
+The crop path contracts each particle's map window with the stencil-
+folded circulant in plain XLA.  These tests compare it with the exact-
+gather parity reference (filter/scoring.py::score_all_rotations),
+covering:
 
-  - tracked + init (theta-search) modes,
-  - all 16 x-residual M variants and all 8 y-residual stacked-map rows
-    (a 16x8 integer-center grid),
-  - map-edge windows reading the zero-padded border (dist 0 / known 0,
-    the reference's out-of-bounds semantics,
+  - tracked, init (theta-search) and mixed modes, at both crop buckets
+    (mo 12 / 24) and at mip levels 1, 2 and 4,
+  - map-edge windows reading the zero border (dist 0 / known 0, the
+    reference's out-of-bounds semantics,
     /root/reference/src/top_down_map_polar.cpp:38-50),
-  - fully out-of-range centers (beyond the padded stack -> kf 0).
+  - fully off-map centers (kf 0).
 
-The map is stored bf16 on the crop path (f32 on the exact path), so cost
-parity is tolerance-based; a perturbed kernel (wrong shift, wrong pixel,
-wrong variant) produces O(1) relative errors on most particles and fails
-these bounds by orders of magnitude.
-
-p_tile is shrunk via monkeypatch: it is a pure performance knob (VMEM
-tile height) and interpret-mode emulates every DMA in Python, so small
-tiles keep the test fast while exercising identical kernel logic.
+The map is stored bf16 on the crop path (f32 on the exact path) and the
+crop path samples at round(center) + round(offset) where the exact path
+rounds the sum (<= 1 px apart), so cost parity is tolerance-based; a
+perturbed scorer (wrong shift, wrong pixel, wrong bucket) produces O(1)
+relative errors on most particles and fails these bounds by orders of
+magnitude.  (The file and test names predate the XLA formulation and
+are kept.)
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
-from top_down_renderer_tpu.filter import pallas_score as ps
+from top_down_renderer_tpu.config import FilterParams
+from top_down_renderer_tpu.core.grids import Particles
+from top_down_renderer_tpu.filter import conv_score as cs
+from top_down_renderer_tpu.filter import crop_score as crop
+from top_down_renderer_tpu.filter.filter import (
+    compute_weights,
+    make_update_step_fast,
+    select_init_cost,
+)
 from top_down_renderer_tpu.filter.scoring import (
     rotation_shift,
     score_all_rotations,
@@ -42,27 +48,26 @@ F = 0.5  # scale * res -> mo bucket 12
 N = 256  # 128 residual-grid + 5 edge + 2 far-out + 121 random
 
 
-def _world():
-    rng = np.random.default_rng(3)
-    packed = np.zeros((H, W, 8), np.float32)
-    packed[..., :C] = rng.random((H, W, C)) * 50
-    packed[..., C] = (rng.random((H, W)) < 0.9).astype(np.float32)
+def _world(h=H, w=W, seed=3):
+    rng = np.random.default_rng(seed)
+    packed = np.zeros((h, w, 8), np.float32)
+    packed[..., :C] = rng.random((h, w, C)) * 50
+    packed[..., C] = (rng.random((h, w)) < 0.9).astype(np.float32)
     stencil = polar_stencil(TH, R)
     scan = (rng.random((C, TH, R)) * 3).astype(np.float32)
     cw = jnp.asarray([1.0, 2.0, 0.5], jnp.float32)
-    maps = ps.build_padded_maps(jnp.asarray(packed))
-    return packed, stencil, scan, cw, maps, rng
+    return packed, stencil, scan, cw, rng
 
 
 def _centers(rng):
-    # every (x % 16, y % 8) residual pair on integer centers
+    # a 16x8 integer-center grid
     xs, ys = np.meshgrid(np.arange(16), np.arange(8))
     grid = np.stack([40.0 + xs.ravel(), 40.0 + ys.ravel()], -1)
-    # map-edge centers whose crops read the zero border
+    # map-edge centers whose windows read the zero border
     edges = np.array(
         [[1, 80], [W - 2, 80], [80, 1], [80, H - 2], [2, 2]], float
     )
-    # far outside the padded stack -> in_range False -> kf 0
+    # far outside the padded map -> kf 0
     far = np.array([[-300.0, 80.0], [80.0, H + 300.0]])
     rnd = rng.integers(2, min(H, W) - 2, (N - len(grid) - 7, 2))
     out = np.concatenate([grid, edges, far, rnd]).astype(np.float32)
@@ -70,32 +75,29 @@ def _centers(rng):
     return out
 
 
-@pytest.fixture(scope="module")
-def setup():
-    packed, stencil, scan, cw, maps, rng = _world()
-    centers = _centers(rng)
-    costs_e, kf_e = score_all_rotations(
+def _exact(packed, stencil, scan, cw, centers, f, mip=1):
+    costs, kf = score_all_rotations(
         jnp.asarray(packed),
         jnp.asarray(stencil),
         jnp.asarray(scan),
         cw,
         jnp.asarray(centers),
-        jnp.full(N, 1.0, jnp.float32),  # scale 1, res F -> f = F
-        jnp.asarray(F, jnp.float32),
+        jnp.full(len(centers), 1.0, jnp.float32),  # scale 1 -> f = res
+        jnp.asarray(f, jnp.float32),
         num_classes=C,
-        map_resolution=1.0,
-        chunk_size=N,
+        map_resolution=float(mip),
+        chunk_size=len(centers),
     )
-    return (
-        stencil,
-        scan,
-        cw,
-        maps,
-        centers,
-        np.asarray(costs_e),
-        np.asarray(kf_e),
-        rng,
-    )
+    return np.asarray(costs), np.asarray(kf)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    packed, stencil, scan, cw, rng = _world()
+    maps = cs.build_padded_maps(jnp.asarray(packed))
+    centers = _centers(rng)
+    costs_e, kf_e = _exact(packed, stencil, scan, cw, centers, F)
+    return stencil, scan, cw, maps, centers, costs_e, kf_e, rng
 
 
 def _check(ref, got, kf_ref, kf_got, label):
@@ -112,13 +114,12 @@ def _check(ref, got, kf_ref, kf_got, label):
     assert np.max(np.abs(kf_ref - kf_got)) < 1e-2, f"{label}: kf mismatch"
 
 
-def test_tracked_interpret_parity(setup, monkeypatch):
+def test_tracked_interpret_parity(setup):
     stencil, scan, cw, maps, centers, costs_e, kf_e, rng = setup
-    monkeypatch.setattr(ps, "tracked_p_tile", lambda mo, **kw: 16)
-    mo = ps.pick_crop_size(F, R)
+    mo = cs.pick_crop_size(F, R, crop.MO_BUCKETS)
     assert mo == 12
-    thetas = (rng.random(N) * 2 * np.pi).astype(np.float32)  # all groups
-    num, den, kf = ps.score_tracked_fast_mo(
+    thetas = (rng.random(N) * 2 * np.pi).astype(np.float32)
+    num, den, kf = crop.score_tracked(
         maps,
         jnp.asarray(stencil),
         jnp.asarray(scan),
@@ -127,7 +128,6 @@ def test_tracked_interpret_parity(setup, monkeypatch):
         jnp.asarray(thetas),
         F,
         mo,
-        interpret=True,
     )
     s = np.asarray(rotation_shift(jnp.asarray(thetas), TH))
     ref = costs_e[np.arange(N), s]
@@ -135,26 +135,19 @@ def test_tracked_interpret_parity(setup, monkeypatch):
     _check(ref, got, kf_e, np.asarray(kf), "tracked")
 
 
-def test_mip_crop_parity(monkeypatch):
+def test_mip_crop_parity():
     """Exploration-regime mip path: scoring against a mip-strided map
     with f/mip at resolution*mip must equal the exact gather evaluated
     on that same subsampled map (filter.py dispatches exactly these
     arguments when scale*res exceeds every crop bucket)."""
-    monkeypatch.setattr(ps, "init_p_tile", lambda mo, **kw: 16)
     mip, f = 4, 4.0  # f_eff = 1.0 -> mo 24
     hh = ww_ = 320
-    rng = np.random.default_rng(11)
-    packed = np.zeros((hh, ww_, 8), np.float32)
-    packed[..., :C] = rng.random((hh, ww_, C)) * 50
-    packed[..., C] = (rng.random((hh, ww_)) < 0.9).astype(np.float32)
+    packed, stencil, scan, cw, rng = _world(hh, ww_, seed=11)
     packed_mip = packed[::mip, ::mip]
-    stencil = polar_stencil(TH, R)
-    scan = (rng.random((C, TH, R)) * 3).astype(np.float32)
-    cw = jnp.asarray([1.0, 2.0, 0.5], jnp.float32)
-    maps = ps.build_padded_maps(jnp.asarray(packed_mip))
+    maps = cs.build_padded_maps(jnp.asarray(packed_mip))
 
     n = 128
-    # centers on multiples of mip (exact c/mip), covering all residuals
+    # centers on multiples of mip (exact c/mip), covering a 16x7 grid
     xs, ys = np.meshgrid(np.arange(16), np.arange(7))
     grid = np.stack(
         [120.0 + mip * xs.ravel(), 120.0 + mip * ys.ravel()], -1
@@ -162,21 +155,12 @@ def test_mip_crop_parity(monkeypatch):
     rnd = mip * rng.integers(8, (hh - 32) // mip, (n - len(grid), 2))
     centers = np.concatenate([grid, rnd]).astype(np.float32)
 
-    costs_e, kf_e = score_all_rotations(
-        jnp.asarray(packed_mip),
-        jnp.asarray(stencil),
-        jnp.asarray(scan),
-        cw,
-        jnp.asarray(centers),
-        jnp.full(n, 1.0, jnp.float32),
-        jnp.asarray(f / mip, jnp.float32),
-        num_classes=C,
-        map_resolution=float(mip),
-        chunk_size=n,
+    costs_e, kf_e = _exact(
+        packed_mip, stencil, scan, cw, centers, f / mip, mip
     )
-    mo = ps.pick_crop_size(f / mip, R)
+    mo = cs.pick_crop_size(f / mip, R, crop.MO_BUCKETS)
     assert mo == 24
-    nums, dens, kf = ps.score_init_fast_mo(
+    nums, dens, kf = crop.score_init(
         maps,
         jnp.asarray(stencil),
         jnp.asarray(scan),
@@ -185,45 +169,56 @@ def test_mip_crop_parity(monkeypatch):
         f / mip,
         mo,
         map_resolution=float(mip),
-        interpret=True,
     )
     ssh = np.asarray(search_shifts(TH, 40))
-    ref = np.asarray(costs_e)[:, ssh]
+    ref = costs_e[:, ssh]
     got = np.asarray(nums) / np.asarray(dens)
     kf_b = np.broadcast_to(np.asarray(kf)[:, None], ref.shape)
-    kfe_b = np.broadcast_to(np.asarray(kf_e)[:, None], ref.shape)
+    kfe_b = np.broadcast_to(kf_e[:, None], ref.shape)
     _check(ref.ravel(), got.ravel(), kfe_b.ravel(), kf_b.ravel(), "mip")
 
 
-def test_init_sel_matches_host_epilogue(setup, monkeypatch):
-    """sel=True (in-kernel divide + NaN->FLT_MAX + kf gate + argmin +
-    scatter readback) must equal the sel=False rows fed through the
-    host epilogue it replaces (filter.score_impl: nums/dens, kf<0.5 ->
-    NaN, select_init_cost) — same kernel accumulator, same f32 ops, so
-    the agreement is exact."""
-    from top_down_renderer_tpu.filter.filter import select_init_cost
-
-    stencil, scan, cw, maps, centers, costs_e, kf_e, rng = setup
-    monkeypatch.setattr(ps, "init_p_tile", lambda mo, **kw: 16)
-    mo = ps.pick_crop_size(F, R)
-    args = (
-        maps,
-        jnp.asarray(stencil),
-        jnp.asarray(scan),
-        cw,
-        jnp.asarray(centers),
-        F,
-        mo,
+def _particles(centers, thetas, have_init):
+    n = len(centers)
+    return Particles(
+        init_px=jnp.asarray(centers, jnp.float32),
+        d_m=jnp.zeros((n, 2), jnp.float32),
+        theta=jnp.asarray(thetas, jnp.float32),
+        scale=jnp.ones(n, jnp.float32),
+        have_init=jnp.asarray(have_init),
+        weight=jnp.full(n, 1.0 / n, jnp.float32),
+        last_dist=jnp.ones(n, jnp.float32),
+        alive=jnp.ones(n, bool),
     )
-    nums, dens, kf = ps.score_init_fast_mo(*args, interpret=True)
+
+
+def _score_impl(mode, mo, mip):
+    params = FilterParams(fixed_scale=1.0, class_weights=[1.0, 2.0, 0.5])
+    return make_update_step_fast(
+        params, C, 1.0, TH, N, mode, mo=mo, path="crop", mip=mip,
+    )._score_impl
+
+
+def test_init_sel_matches_host_epilogue(setup):
+    """The fast step's init scoring (filter.make_update_step_fast,
+    path="crop") must equal the crop scorer's rows fed through the
+    host epilogue (nums/dens, kf<0.5 -> NaN, select_init_cost) - same
+    rows, same f32 ops, so the agreement is exact."""
+    stencil, scan, cw, maps, centers, costs_e, kf_e, rng = setup
+    mo = cs.pick_crop_size(F, R, crop.MO_BUCKETS)
+    nums, dens, kf = crop.score_init(
+        maps, jnp.asarray(stencil), jnp.asarray(scan), cw,
+        jnp.asarray(centers), F, mo,
+    )
     costs = jnp.asarray(nums) / jnp.asarray(dens)
     costs = jnp.where(jnp.asarray(kf)[:, None] < 0.5, jnp.nan, costs)
     ref_cost, ref_theta = select_init_cost(costs, 40)
 
-    got_cost, got_theta, got_kf = ps.score_init_sel_mo(
-        *args, interpret=True
+    p = _particles(centers, np.zeros(N), np.zeros(N, bool))
+    got_cost, got_theta = _score_impl("init", mo, 1)(
+        p, maps, jnp.asarray(stencil), jnp.asarray(scan),
+        jnp.asarray(F, jnp.float32), jnp.asarray(0, jnp.int32),
     )
-    np.testing.assert_array_equal(np.asarray(got_kf), np.asarray(kf))
     np.testing.assert_array_equal(
         np.asarray(got_cost), np.asarray(ref_cost)
     )
@@ -232,11 +227,10 @@ def test_init_sel_matches_host_epilogue(setup, monkeypatch):
     )
 
 
-def test_init_interpret_parity(setup, monkeypatch):
+def test_init_interpret_parity(setup):
     stencil, scan, cw, maps, centers, costs_e, kf_e, rng = setup
-    monkeypatch.setattr(ps, "init_p_tile", lambda mo, **kw: 16)
-    mo = ps.pick_crop_size(F, R)
-    nums, dens, kf = ps.score_init_fast_mo(
+    mo = cs.pick_crop_size(F, R, crop.MO_BUCKETS)
+    nums, dens, kf = crop.score_init(
         maps,
         jnp.asarray(stencil),
         jnp.asarray(scan),
@@ -244,7 +238,6 @@ def test_init_interpret_parity(setup, monkeypatch):
         jnp.asarray(centers),
         F,
         mo,
-        interpret=True,
     )
     ssh = np.asarray(search_shifts(TH, 40))
     ref = costs_e[:, ssh]
@@ -254,147 +247,104 @@ def test_init_interpret_parity(setup, monkeypatch):
     _check(ref.ravel(), got.ravel(), kfe_b.ravel(), kf_b.ravel(), "init")
 
 
-def test_int4_tracked_and_init_parity(setup, monkeypatch):
-    """Nibble-packed crop layout (TDR_MAP_INT4=1): interpret-mode
-    parity for both scoring flavors.
-
-    Two references bound two distinct error sources:
-      1. exact gather on the DEQUANTIZED int4 map — isolates the
-         kernel/packing logic (unpack, plane-split M, 32-px x-residual
-         rotate) at the int8-M tolerance of the int8-layout tests;
-      2. exact gather on the f32 map — bounds the int4 quantization
-         noise itself (16 levels/channel averaged over ~2,500 stencil
-         cells)."""
-    stencil, scan, cw, _maps, centers, costs_e, kf_e, rng = setup
-    monkeypatch.setenv("TDR_MAP_INT4", "1")
-    monkeypatch.setattr(ps, "tracked_p_tile", lambda mo, **kw: 16)
-    monkeypatch.setattr(ps, "init_p_tile", lambda mo, **kw: 16)
-    packed, _, _, _, _, _ = _world()
-    maps_i4 = ps.build_padded_maps(jnp.asarray(packed))
-    assert maps_i4.i4
-    assert maps_i4.stacked.shape[2] == maps_i4.wp * 4
-
-    # reference 1: exact scorer on the dequantized int4 field (even
-    # channels 4-bit, odd channels 3-bit - the e-dot packing)
-    amax = np.maximum(packed.reshape(-1, 8).max(0), 1e-6)
-    qmax = np.array([15.0, 7.0] * 4, np.float32)
-    deq = np.clip(np.round(packed * (qmax / amax)), 0, qmax) * (
-        amax / qmax
+@pytest.mark.parametrize("mode", ["tracked", "init", "mixed"])
+@pytest.mark.parametrize("mip", [1, 2, 4])
+@pytest.mark.parametrize("mo", [12, 24])
+def test_crop_step_parity(mo, mip, mode):
+    """The fast step's crop scoring (the argument wiring filter.py
+    dispatches: f/mip at resolution*mip on the mip-strided map) against
+    the exact gather on the same subsampled map, for every crop bucket,
+    mip level and scoring mode."""
+    f_eff = {12: 0.5, 24: 1.0}[mo]
+    f = f_eff * mip
+    packed, stencil, scan, cw, rng = _world(seed=20 + mo + mip)
+    packed_mip = packed[::mip, ::mip]
+    h, w = packed_mip.shape[:2]
+    n = 64
+    # interior, edge and off-map centers (multiples of mip: the mip
+    # path scores round(c / mip))
+    cells = np.concatenate(
+        [
+            rng.integers(1, min(h, w) - 1, (n - 4, 2)),
+            [[0, h // 2], [w - 1, h // 2], [-200, 5], [5, h + 200]],
+        ]
     )
+    centers = (cells * mip).astype(np.float32)
+    thetas = (rng.random(n) * 2 * np.pi).astype(np.float32)
+    have = {
+        "tracked": np.ones(n, bool),
+        "init": np.zeros(n, bool),
+        "mixed": rng.random(n) < 0.5,
+    }[mode]
+    costs_e, kf_e = _exact(packed_mip, stencil, scan, cw, centers,
+                           f / mip, mip)
+    p = _particles(centers, thetas, have)
+    maps = cs.build_padded_maps(jnp.asarray(packed_mip))
+    params = FilterParams(fixed_scale=1.0, class_weights=[1.0, 2.0, 0.5])
+    score = make_update_step_fast(
+        params, C, 1.0, TH, n, mode, mo=mo, path="crop", mip=mip,
+    )._score_impl
+    cost, theta = score(
+        p, maps, jnp.asarray(stencil), jnp.asarray(scan),
+        jnp.asarray(f, jnp.float32), jnp.asarray(0, jnp.int32),
+    )
+    cost, theta = np.asarray(cost), np.asarray(theta)
+    # exact per-particle select (state_particle.cpp:188-210) on the
+    # exact costs; off-map particles (kf 0) score NaN / FLT_MAX on both
+    w_ref, theta_ref, _ = compute_weights(
+        jnp.asarray(costs_e), p, params,
+        jnp.asarray([1e9, 1e9], jnp.float32), TH,
+    )
+    w_ref = np.asarray(w_ref)
+    w_got = 1.0 / (cost + params.regularization)
+    ok = np.isfinite(w_ref) & (kf_e >= 0.5)
+    assert ok.sum() > 0.8 * n
+    rel = np.abs(w_got[ok] - w_ref[ok]) / np.abs(w_ref[ok])
+    assert np.median(rel) < 5e-3, np.median(rel)
+    assert np.mean(rel > 0.05) < 0.05, np.mean(rel > 0.05)
+    off = kf_e == 0.0
+    assert off.sum() >= 2
+    if mode == "tracked":
+        assert np.all(np.isnan(cost[off]))
+    else:
+        assert np.all(np.isnan(cost[off]) | (cost[off] > 1e30))
+    # tracked particles keep their theta; searched ones adopt a search
+    # rotation whose EXACT cost is within tolerance of the exact best
+    np.testing.assert_allclose(theta[have], thetas[have], atol=1e-6)
+    ssh = np.asarray(search_shifts(TH, 40))
+    sel = ok & ~have
+    if sel.any():
+        ce = np.where(np.isnan(costs_e[:, ssh]), np.inf, costs_e[:, ssh])
+        k = np.round(theta[sel] / (2 * np.pi / 40)).astype(int) % 40
+        np.testing.assert_allclose(
+            ce[sel, k], ce[sel].min(axis=1), rtol=5e-3, atol=1e-4
+        )
+
+
+def test_crop_off_map_windows_read_zero():
+    """Windows reaching past the map read the zero border exactly like
+    the exact gather's out-of-bounds reads, and a center far off the
+    map (beyond the padded border) reads only zeros: every cost, norm
+    and known count is 0, never a clamped in-map window."""
+    packed, stencil, scan, cw, rng = _world(seed=5)
+    maps = cs.build_padded_maps(jnp.asarray(packed))
+    centers = np.array(
+        [[-1.0, 80.0], [W + 3.0, 40.0], [80.0, -20.0], [-24.0, -24.0],
+         [-5000.0, 80.0], [80.0, 7000.0], [1e6, -1e6], [80.0, 80.0]],
+        np.float32,
+    )
+    costs_e, kf_e = _exact(packed, stencil, scan, cw, centers, 1.0)
+    nums, dens, kf = map(np.asarray, crop.score_init(
+        maps, jnp.asarray(stencil), jnp.asarray(scan), cw,
+        jnp.asarray(centers), 1.0, 24,
+    ))
+    np.testing.assert_allclose(kf, kf_e, atol=1e-3)
+    far = slice(4, 7)
+    assert np.all(kf[far] == 0.0)
+    assert np.all(nums[far] == 0.0) and np.all(dens[far] == 0.0)
+    ssh = np.asarray(search_shifts(TH, 40))
+    near = kf_e > 0.5
+    assert near[-1]
     np.testing.assert_allclose(
-        np.asarray(maps_i4.qinv), amax / qmax, rtol=1e-6
-    )
-    costs_q, kf_q = score_all_rotations(
-        jnp.asarray(deq.astype(np.float32)),
-        jnp.asarray(stencil),
-        jnp.asarray(scan),
-        cw,
-        jnp.asarray(centers),
-        jnp.full(N, 1.0, jnp.float32),
-        jnp.asarray(F, jnp.float32),
-        num_classes=C,
-        map_resolution=1.0,
-        chunk_size=N,
-    )
-    costs_q, kf_q = np.asarray(costs_q), np.asarray(kf_q)
-
-    mo = ps.pick_crop_size(F, R)
-    thetas = (rng.random(N) * 2 * np.pi).astype(np.float32)
-    num, den, kf = ps.score_tracked_fast_mo(
-        maps_i4, jnp.asarray(stencil), jnp.asarray(scan), cw,
-        jnp.asarray(centers), jnp.asarray(thetas), F, mo,
-        interpret=True,
-    )
-    s = np.asarray(rotation_shift(jnp.asarray(thetas), TH))
-    got = np.asarray(num) / np.asarray(den)
-    _check(
-        costs_q[np.arange(N), s], got, kf_q, np.asarray(kf),
-        "int4 tracked vs dequantized ref",
-    )
-    _check(
-        costs_e[np.arange(N), s], got, kf_e, np.asarray(kf),
-        "int4 tracked vs f32 ref",
-    )
-
-    nums, dens, kfi = ps.score_init_fast_mo(
-        maps_i4, jnp.asarray(stencil), jnp.asarray(scan), cw,
-        jnp.asarray(centers), F, mo, interpret=True,
-    )
-    ssh = np.asarray(search_shifts(TH, 40))
-    gots = np.asarray(nums) / np.asarray(dens)
-    kfir = np.asarray(kfi)
-    for j in (0, 13, 39):
-        _check(
-            costs_q[:, ssh][:, j], gots[:, j], kf_q, kfir,
-            f"int4 init rot {j}",
-        )
-
-
-def test_yfold_tracked_and_init_parity(setup, monkeypatch):
-    """y-folded crop layout (TDR_YFOLD=1): interpret-mode parity for
-    both scoring flavors against the exact gather.  The layout is
-    hardware-gated off by default (Mosaic requires 8-sublane-aligned
-    DMA starts, tests/probe_dma_unaligned.py), but the kernel logic,
-    M pixel mapping, and 2-px x-residual rotate stay parity-covered
-    here."""
-    stencil, scan, cw, _maps, centers, costs_e, kf_e, rng = setup
-    monkeypatch.setenv("TDR_YFOLD", "1")
-    monkeypatch.setattr(ps, "tracked_p_tile", lambda mo, **kw: 16)
-    monkeypatch.setattr(ps, "init_p_tile", lambda mo, **kw: 16)
-    packed, _, _, _, _, _ = _world()
-    maps_yf = ps.build_padded_maps(jnp.asarray(packed))
-    assert maps_yf.yf
-    assert maps_yf.stacked.shape[1] * 8 == maps_yf.hp
-    mo = ps.pick_crop_size(F, R)
-    thetas = (rng.random(N) * 2 * np.pi).astype(np.float32)
-    num, den, kf = ps.score_tracked_fast_mo(
-        maps_yf, jnp.asarray(stencil), jnp.asarray(scan), cw,
-        jnp.asarray(centers), jnp.asarray(thetas), F, mo,
-        interpret=True,
-    )
-    s = np.asarray(rotation_shift(jnp.asarray(thetas), TH))
-    ref = costs_e[np.arange(N), s]
-    _check(
-        ref, np.asarray(num) / np.asarray(den), kf_e, np.asarray(kf),
-        "yfold tracked",
-    )
-    nums, dens, kfi = ps.score_init_fast_mo(
-        maps_yf, jnp.asarray(stencil), jnp.asarray(scan), cw,
-        jnp.asarray(centers), F, mo, interpret=True,
-    )
-    ssh = np.asarray(search_shifts(TH, 40))
-    refs = costs_e[:, ssh]
-    gots = np.asarray(nums) / np.asarray(dens)
-    kfir = np.asarray(kfi)
-    for j in (0, 13, 39):
-        _check(
-            refs[:, j], gots[:, j], kf_e, kfir, f"yfold init rot {j}"
-        )
-
-
-@pytest.mark.parametrize("mo", list(ps._MO_BUCKETS))
-def test_yfold_mosaic_trace(setup, monkeypatch, mo):
-    """Trace the NON-interpret yfold kernel: Mosaic's bitcast legality
-    checks fire at pallas trace time, so this catches sublane-packing
-    bugs on CPU.  mo=24 regression: dr//8 = 7 crop-buffer rows broke
-    the int8->i32 bitcast ("2nd minor dim can not be perfectly packed")
-    until the buffer was padded to yf_buf_rows (multiple of 4); the
-    interpret branch rolls via f32 and never exercises the bitcast."""
-    stencil, scan, cw, _maps, centers, _costs_e, _kf_e, rng = setup
-    monkeypatch.setenv("TDR_YFOLD", "1")
-    packed, _, _, _, _, _ = _world()
-    maps_yf = ps.build_padded_maps(jnp.asarray(packed))
-    assert maps_yf.yf
-    thetas = jnp.asarray(
-        (rng.random(N) * 2 * np.pi).astype(np.float32)
-    )
-    jax.eval_shape(
-        ps.make_score_tracked(mo, 1.0, interpret=False),
-        maps_yf, jnp.asarray(stencil), jnp.asarray(scan), cw,
-        jnp.asarray(centers), thetas, jnp.float32(F),
-    )
-    jax.eval_shape(
-        ps.make_score_init(mo, 40, 1.0, interpret=False, sel=True),
-        maps_yf, jnp.asarray(stencil), jnp.asarray(scan), cw,
-        jnp.asarray(centers), jnp.float32(F),
+        nums[near] / dens[near], costs_e[near][:, ssh], rtol=2e-2
     )

@@ -309,21 +309,17 @@ def _mini_world_pf_unknown_scale(mesh=None, n=128, seed=0):
     )
 
 
-def test_mesh_multi_path_matches_single_chip(monkeypatch):
+def test_mesh_multi_path_matches_single_chip():
     """The unknown-scale regime must run the K-bucket crop path ON THE
-    MESH (per-device kernel over the local particle shard,
+    MESH (crop scorer over each device's local particle shard,
     sharding.make_sharded_step_multi) - not fall to the sharded exact
-    gather - and must match the single-chip multi step on the
+    gather - and must match the single-device multi step on the
     pre-resample max-weight state (identical particle sets: zero motion
     pending, same seed)."""
     if jax.device_count() < 2:
         pytest.skip("needs 2 virtual devices")
-    from top_down_renderer_tpu.filter import pallas_score as ps
     from top_down_renderer_tpu.parallel.sharding import make_mesh
 
-    # small interpret-mode tiles keep the CPU grid loop fast
-    monkeypatch.setattr(ps, "init_p_tile", lambda mo, **kw: 16)
-    monkeypatch.setattr(ps, "tracked_p_tile", lambda mo, **kw: 16)
     pf_s = _mini_world_pf_unknown_scale(mesh=None, seed=11)
     pf_m = _mini_world_pf_unknown_scale(mesh=make_mesh(2), seed=11)
     rng = np.random.default_rng(5)

@@ -1,11 +1,11 @@
-"""tdr-tpu: TPU-native semantic cross-view localization framework.
+"""tdr: semantic cross-view localization framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 KumarRobotics/top_down_renderer (the "XView" system): global Monte-Carlo
 localization of a ground robot against an aerial semantic map from
 semantically-labeled LiDAR scans.
 
-Layer map (mirrors SURVEY.md section 1, redesigned TPU-first):
+Layer map (mirrors SURVEY.md section 1, redesigned for batched arrays):
   core/      array pytrees + geometry helpers
   maps/      semantic map loading (SVG/raster), jitted rasterization + EDT,
              polar sampling stencil  (ref: top_down_map.{h,cpp})

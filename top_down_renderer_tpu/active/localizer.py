@@ -9,7 +9,7 @@ maps across hypotheses - "go where the hypotheses look most different"
 commented (particle_filter.cpp:316); here it is a first-class jitted
 function over the same device-resident map tensor.
 
-TPU-first: all (hypothesis x candidate) local windows are gathered in one
+Batched: all (hypothesis x candidate) local windows are gathered in one
 batched stencil gather and the pairwise-difference reduction is a single
 einsum-style contraction; the reference's early-exit ring loop
 (best_diff < 6000) is reproduced with a ring-prefix argmax.

@@ -20,7 +20,8 @@ from __future__ import annotations
 from typing import Any
 
 import jax.numpy as jnp
-from flax import struct
+
+from top_down_renderer_tpu.core import struct
 
 
 @struct.dataclass

@@ -4,22 +4,26 @@ After convergence the particle cloud occupies a small map region (the
 adaptive count keeps ~3/4 n + 10 particles in a tight cluster,
 particle_filter.cpp:151-158).  In that regime, evaluating the cost at
 every integer center of the bounding region is cheaper than per-particle
-work: the stencil-folded circulant matrix M (see pallas_score) reshapes
-directly into a convolution kernel, so
+work: the stencil->pixel selection folded through the rolled-scan
+circulant is a convolution kernel K (build_conv_kernel), so
 
     field[y, x, s] = sum_{dy, dx, c} K[dy, dx, c, s] * map[y+dy, x+dx, c]
 
-is ONE XLA conv on the MXU (output channels = costs at all shifts +
-norms + known-count), and each particle just reads
-field[round(cy), round(cx), shift] - three single-element gathers.
+is ONE matmul over im2col patches (output channels = costs at all
+shifts + norms + known-count), and each particle just reads
+field[round(cy), round(cx), shift].
 
-Sampling semantics are identical to the Pallas crop path: NN at
-round(center) + round(offset * scale * res).  No DMA alignment games:
-convs slide at 1-pixel granularity.
+Sampling semantics: NN at round(center) + round(offset * scale * res),
+identical to the crop path (crop_score.py evaluates the same kernel at
+the particle centers only).
 
 Used when the alive-particle bounding box fits a region bucket; the
-Pallas crop path covers the spread case and the exact gather covers
+crop path covers the spread case and the exact gather covers
 everything else.
+
+This module also owns the zero-padded device copies of the map that
+both fast paths read (PaddedMaps) and the one-hot stencil->pixel
+kernel builder they share.
 """
 
 from __future__ import annotations
@@ -32,21 +36,128 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from top_down_renderer_tpu.filter.pallas_score import (
-    C_PAD,
-    PaddedMaps,
-    _build_base_y_from_pix,
-)
+from top_down_renderer_tpu.core import struct
 from top_down_renderer_tpu.filter.scoring import rotation_shift
 
+C_PAD = 8  # packed map channels (build_grid pads to 8)
+# zero border of the padded maps: >= 2*mo+2 for every crop bucket
+# (crop_score.window_origins clamps off-map windows into it)
+MAP_PAD = 64
+# max stencil pixel offset buckets of the conv path (kernel size grows
+# ~mo^2)
+MO_BUCKETS_CONV = (12, 24, 36, 48)
 # output-region buckets (cost-field height/width in px)
 REGION_BUCKETS = (64, 128, 192, 256)
 
 
+def pick_crop_size(f: float, range_bins: int, buckets) -> int | None:
+    """Smallest max-offset bucket mo covering scale*res = f (every
+    stencil offset round((range_bins-1) * f) <= mo), or None if no
+    bucket does."""
+    max_off = int(np.ceil((range_bins - 1) * float(f)))
+    for mo in buckets:
+        if max_off <= mo:
+            return mo
+    return None
+
+
+@struct.dataclass
+class PaddedMaps:
+    """Zero-padded device copies of the packed map; rebuild on map
+    change.  Zeros = dist 0 / known 0, the reference's out-of-bounds
+    values (top_down_map_polar.cpp:38-50)."""
+
+    padded3d: jnp.ndarray  # (Hp, Wp, 8) bf16: crop windows, direct conv
+    padded4d: jnp.ndarray  # (~Hp/4, ~Wp/4, 128) bf16 s2d phase fold
+    padded4d_i8: jnp.ndarray = None  # int8 s2d fold (TDR_CONV_INT8)
+    qinv4d: jnp.ndarray = None  # (8,) f32 scales for padded4d_i8
+    hp: int = struct.field(pytree_node=False, default=0)
+    wp: int = struct.field(pytree_node=False, default=0)
+    pad: int = struct.field(pytree_node=False, default=0)
+
+
+def quantize_channels(packed: jnp.ndarray):
+    """(H, W, 8) f32 -> (int8 quantized, (8,) f32 qinv): symmetric
+    per-channel scales q = 126/max|v| so known-channel {0,1} maps to
+    {0,126} exactly and distance channels get ~max/126 granularity."""
+    p32 = packed.astype(jnp.float32)
+    amax = jnp.maximum(
+        jnp.max(jnp.abs(p32), axis=(0, 1)), 1e-6
+    )  # (8,)
+    q = 126.0 / amax
+    pq = jnp.clip(jnp.round(p32 * q), -127, 127).astype(jnp.int8)
+    return pq, amax / 126.0
+
+
+def build_padded_maps(
+    packed: jnp.ndarray, pad: int = MAP_PAD
+) -> PaddedMaps:
+    """(H, W, 8) f32 -> PaddedMaps with a `pad`-pixel zero border."""
+    pb = jnp.pad(
+        packed.astype(jnp.bfloat16), ((pad, pad), (pad, pad), (0, 0))
+    )
+    pq, qinv = quantize_channels(packed)
+    p8 = jnp.pad(pq, ((pad, pad), (pad, pad), (0, 0)))
+    return PaddedMaps(
+        padded3d=pb,
+        padded4d=fold_map_s2d(pb),
+        padded4d_i8=fold_map_s2d(p8, jnp.int8),
+        qinv4d=qinv,
+        hp=int(pb.shape[0]), wp=int(pb.shape[1]), pad=int(pad),
+    )
+
+
+def _build_base_y_from_pix(
+    pix8: jnp.ndarray,  # (TR,) K-row base index per stencil point
+    kext: int,
+    c: int,
+    cost_cols: jnp.ndarray,  # (TR*C, n_cost) - rows in (theta,r,c) order
+    norm_cols: jnp.ndarray,  # (TR, n_norm)
+    s_cols: int,
+) -> jnp.ndarray:
+    """Build the base tensor y (C_PAD, s_cols, n_slots) f32.
+
+    The stencil->pixel selection is a dense one-hot matmul at CELL
+    granularity: every stencil cell's 8 channels share one pixel slot
+    (pix8 is always a multiple of C_PAD), so the one-hot is
+    (TR, Kext/8) instead of (TR*8, Kext):
+      y[(ch, s), slot] = circ3_T ((C_PAD*s_cols), TR) @ onehot (TR, slots)
+    Channels < c carry cost, channel c carries norm + the kf count,
+    channels > c are zero padding.
+    """
+    tr = pix8.shape[0]
+    n_cost = cost_cols.shape[1]
+    n_norm = norm_cols.shape[1]
+    circ2 = jnp.zeros((tr, C_PAD, s_cols), jnp.float32)
+    circ2 = circ2.at[:, :c, :n_cost].set(
+        cost_cols.reshape(tr, c, n_cost)
+    )
+    circ2 = circ2.at[:, c, n_cost : n_cost + n_norm].set(norm_cols)
+    circ2 = circ2.at[:, c, n_cost + n_norm].set(1.0)
+    n_slots = kext // C_PAD
+    lhs = (
+        circ2.transpose(1, 2, 0)
+        .reshape(C_PAD * s_cols, tr)
+        .astype(jnp.bfloat16)
+    )
+    pix_cell = pix8 // C_PAD
+    # one-hot chunked to ~16 MB of bf16
+    n_chunks = max(1, -(-(tr * n_slots * 2) // (16 << 20)))
+    kc = -(-n_slots // (n_chunks * 128)) * 128
+    parts = []
+    for j in range(n_chunks):
+        kidx = j * kc + jax.lax.broadcasted_iota(jnp.int32, (1, kc), 1)
+        onehot = (pix_cell[:, None] == kidx).astype(jnp.bfloat16)
+        parts.append(
+            jnp.dot(lhs, onehot, preferred_element_type=jnp.float32)
+        )
+    y = jnp.concatenate(parts, axis=1)[:, :n_slots]
+    return y.reshape(C_PAD, s_cols, n_slots)
+
+
 def conv_dims(mo: int):
-    """Tight conv-kernel extent: the conv slides at 1 px so it needs
-    none of the crop path's DMA-alignment margins (44% less im2col
-    at mo=24 than crop_dims)."""
+    """Kernel extent for max stencil offset mo: rows/cols hold
+    offset + mo + 1 in [1, 2*mo+1] (row/col 0 is structurally zero)."""
     d = 2 * mo + 2
     return d, d
 
@@ -62,8 +173,7 @@ def _windowed_cost_norm(scan, class_weights, s0, ww):
     """Cost/norm circulant COLUMNS for the consecutive shift window
     [s0, s0+ww) only: ww doubled-axis dynamic slices instead of
     materializing the full Th-wide circulant and gathering ww of its
-    columns (build_circulants' 100 rolls + relayout dominated the
-    kernel build at ~2 ms)."""
+    columns (build_circulants' 100 rolls + relayout)."""
     c, th, r = scan.shape
     wscan = scan * (0.01 * class_weights)[:, None, None]
     # triple-tile the theta axis so start = s0 + j < 2*Th always leaves
@@ -101,9 +211,9 @@ def _searched_cost_norm(scan, class_weights, num_rot):
     ssum = jnp.sum(scan, axis=0)
     # the shifts come from the SAME search_shifts the exact/crop init
     # paths use (host-fetched: its inputs are static so it constant-folds
-    # eagerly on the current backend) - a numpy re-derivation rounded the
-    # exact .5 ties the other way than XLA-TPU's reciprocal-multiply
-    # divide, scoring those candidates one theta bin off
+    # eagerly on the current backend) - a numpy re-derivation can round
+    # the exact .5 ties the other way than XLA's divide, scoring those
+    # candidates one theta bin off
     from top_down_renderer_tpu.filter.scoring import search_shifts
 
     # the shifts are static; evaluate them OUTSIDE any enclosing trace
@@ -130,84 +240,6 @@ def _cost_norm_cols(scan, class_weights, mode, num_rot, window_w, s0):
     if mode == "tracked":
         return _windowed_cost_norm(scan, class_weights, s0, window_w)
     return _searched_cost_norm(scan, class_weights, num_rot)
-
-
-def build_conv_kernel_s2d(
-    scan: jnp.ndarray,
-    class_weights: jnp.ndarray,
-    stencil: jnp.ndarray,
-    f,
-    mo: int,
-    mode: str,
-    num_rot: int = 40,
-    window_w: int = 100,
-    s0=0,
-) -> jnp.ndarray:
-    """Build the FOLDED (dye, dxe, 128, 16*s_out) bf16 kernel directly:
-    per-phase one-hot matmuls place each stencil cell straight into its
-    space-to-depth slot, skipping the unfolded kernel + the 16-slice
-    fold relayout (fold_kernel_s2d).
-
-    MEASURED SLOWER than build+fold on v5e (8.42 vs 6.55 ms full step
-    at mo 24 / ww 16): the 16 narrow per-phase matmuls and the final
-    5-D transpose lose more than the fold relayout costs.  Kept as the
-    reference formulation for revisiting with a Pallas build kernel;
-    the scorer uses build_conv_kernel + cost_field_s2d."""
-    from top_down_renderer_tpu.filter.pallas_score import C_PAD
-
-    c, th, r = scan.shape
-    dr, dc = conv_dims(mo)
-    dye, dxe = s2d_extent(dr), s2d_extent(dc)
-    n4 = dye * dxe * 16
-    off = jnp.round(stencil.reshape(-1, 2) * f).astype(jnp.int32)
-    a = off[:, 0] + dr // 2  # kernel row per stencil point
-    b = off[:, 1] + dc // 2
-    cost_cols, norm_cols = _cost_norm_cols(
-        scan, class_weights, mode, num_rot, window_w, s0
-    )
-    s_out = (
-        2 * window_w + 1 if mode == "tracked" else 2 * num_rot + 1
-    )
-    tr = a.shape[0]
-
-    # shared lhs: channels < c carry cost, channel c carries norm + kf
-    circ2 = jnp.zeros((tr, C_PAD, s_out), jnp.float32)
-    n_cost = cost_cols.shape[1]
-    n_norm = norm_cols.shape[1]
-    circ2 = circ2.at[:, :c, :n_cost].set(
-        cost_cols.reshape(tr, c, n_cost)
-    )
-    circ2 = circ2.at[:, c, n_cost : n_cost + n_norm].set(norm_cols)
-    circ2 = circ2.at[:, c, n_cost + n_norm].set(1.0)
-    lhs = (
-        circ2.transpose(1, 2, 0)
-        .reshape(C_PAD * s_out, tr)
-        .astype(jnp.bfloat16)
-    )
-
-    parts = []
-    for py in range(F_S2D):
-        dy_ = a + py
-        for px in range(F_S2D):
-            dx_ = b + px
-            cell = (
-                ((dy_ // F_S2D) * dxe + dx_ // F_S2D) * 16
-                + (dy_ % F_S2D) * F_S2D
-                + dx_ % F_S2D
-            )  # (TR,)
-            kidx = jax.lax.broadcasted_iota(jnp.int32, (1, n4), 1)
-            onehot = (cell[:, None] == kidx).astype(jnp.bfloat16)
-            parts.append(
-                jnp.dot(lhs, onehot, preferred_element_type=jnp.float32)
-            )  # (C_PAD*s_out, n4)
-    y = jnp.stack(parts, axis=0)  # (16p, C_PAD*s_out, n4)
-    k4 = (
-        y.reshape(16, C_PAD, s_out, dye * dxe, 16)
-        .transpose(3, 4, 1, 0, 2)  # (DYDX, qq, cc, p, ss)
-        .reshape(dye, dxe, 16 * C_PAD, 16 * s_out)
-        .astype(jnp.bfloat16)
-    )
-    return k4
 
 
 def build_conv_kernel(
@@ -259,13 +291,11 @@ def build_conv_kernel(
 
 
 # ---------------------------------------------------------------------
-# Space-to-depth phase folding: the MXU-dense conv formulation.
+# Space-to-depth phase folding: the dense-contraction conv formulation.
 #
-# XLA's TPU conv pads the contraction channel dim to 128, so the
-# C_PAD=8 direct conv wastes 15/16 of its im2col traffic and MXU depth
-# (measured ~8 ms at region 128 / mo 24).  Folding 4x4 spatial phases
-# of the map into the channel dim makes the contraction exactly
-# 128-dense:
+# The C_PAD=8 direct conv contracts over only 8 channels per tap.
+# Folding 4x4 spatial phases of the map into the channel dim makes the
+# contraction 128 deep:
 #
 #   map4[Y, X, (qy, qx, c)]   = map[4Y+qy, 4X+qx, c]      (once per map)
 #   K4[(py, px, s), DY, DX, (qy, qx, c)] = K[s, 4DY+qy-py, 4DX+qx-px, c]
@@ -274,10 +304,9 @@ def build_conv_kernel(
 # and field[j, x] for center row j = 4Yb + py reads out4[Yb, ...] at
 # channel (py*4 + px)*S + s.  Same arithmetic, 16x less im2col traffic.
 F_S2D = 4
-# kernel-size gate: above this the folded kernel's HBM traffic stops
-# paying for itself; fall back to the direct conv.  256 MB covers the
-# full-window tracked kernel at mo=24 (161 MB) - still ~20x less HBM
-# traffic than the direct conv's channel-padded im2col
+# kernel-size gate: above this the folded kernel's memory traffic is
+# taken to stop paying for itself; fall back to the direct conv.  256 MB
+# covers the full-window tracked kernel at mo=24 (161 MB)
 K4_MAX_BYTES = 256 * 2**20
 
 
@@ -316,8 +345,7 @@ def fold_kernel_s2d(kernel: jnp.ndarray) -> jnp.ndarray:
 
     Output channel (py*4 + px)*S + s scores centers at spatial phase
     (py, px); folded input channel order (qy, qx, c) matches
-    fold_map_s2d.  (HWIO keeps the relayout off the minor dims: ~25%
-    faster than the OHWI fold on v5e.)"""
+    fold_map_s2d.  (HWIO keeps the relayout off the minor dims.)"""
     dr, dc, c, s = kernel.shape
     f = F_S2D
     dye, dxe = s2d_extent(dr), s2d_extent(dc)
@@ -360,31 +388,25 @@ def _fold_relabel(d: int) -> np.ndarray:
 
 def fold_mm() -> bool:
     """TDR_FOLD_MM=1 switches cost_field_s2d to the relabel-matmul fold
-    (fold_kernel_s2d_mm); default stays the slice/pad/transpose fold
-    until the on-chip A/B lands (repo rule: no unmeasured defaults)."""
+    (fold_kernel_s2d_mm); default is the slice/pad/transpose fold."""
     return os.environ.get("TDR_FOLD_MM", "0") == "1"
 
 
 def conv_int8() -> bool:
     """TDR_CONV_INT8=1 runs the kf-split tracked cost field as an int8
-    contraction: int8-quantized folded map (the crop path's
-    quantize_channels scales) x per-column int8 kernel, i32 MXU
-    accumulation, f32 dequant.  Halves the im2col + kernel HBM traffic
-    and doubles the MXU rate of the headline step's largest matmul
-    (1.62 ms bf16 at region 128 / mo 24 / ww 16).
+    contraction: int8-quantized folded map (quantize_channels scales)
+    x per-column int8 kernel, i32 accumulation, f32 dequant.  Halves
+    the im2col + kernel bytes of the converged step's largest matmul.
 
-    Precision mirrors the crop kernel's m_hilo default: every column
-    gets a hi/lo int8 residual pair (effective ~16-bit).  A single
+    Every column gets a hi/lo int8 residual pair (effective ~16-bit).
+    A single
     plane is NOT enough here - the windowed cost columns are
     all-positive with ~39% of their nonzero coefficients below half an
     LSB, so single-plane rounding zeroes them and biases cost -4%
-    (measured, tests/test_conv_score.py::test_conv_int8_matches_bf16
-    guards it).  Doubling the columns keeps the matmul int8-dense; the
-    step's 1.62 ms bf16 field is im2col-traffic-bound (~7.5% MXU
-    efficiency), so halving the patch bytes is where the win lives.
-    Default OFF until the on-chip A/B lands (repo rule: no unmeasured
-    defaults); requires the kf-split layout, so the init and
-    full-window kernels stay bf16."""
+    (tests/test_conv_score.py::test_conv_int8_matches_bf16 guards it).
+    Default OFF: its speed has not been measured on the GPU.  Requires
+    the kf-split layout, so the init and full-window kernels stay
+    bf16."""
     return os.environ.get("TDR_CONV_INT8", "0") == "1"
 
 
@@ -393,11 +415,9 @@ def kf_split() -> bool:
     tiny K4 and runs it as a second matmul, so the main fold
     concatenates 2*window_w-lane phase chunks instead of 2*ww+1: at
     ww=16 the chunks are 32 lanes (exactly 1/4 of the 128-lane tile)
-    and every phase boundary is 32-aligned, where the odd 33-lane
-    interleave forces per-element lane rotates across every output
-    tile.  Default ON since the on-chip A/B: 4.02 ms/step (249
-    steps/s) vs 5.06 ms base at 102,400 particles (chain_log
-    headline_kfsplit, TPU v5e).  Applies to tracked mode with
+    and every phase boundary is 32-aligned instead of the odd
+    33-column interleave.  Default ON; its speed on the GPU has not
+    been re-measured.  Applies to tracked mode with
     (2*window_w) % 32 == 0 only (the full-window and init kernels
     stay combined); TDR_KF_SPLIT=0 restores the combined fold."""
     return os.environ.get("TDR_KF_SPLIT", "1") == "1"
@@ -407,23 +427,15 @@ def fold_kernel_s2d_mm(kernel: jnp.ndarray) -> jnp.ndarray:
     """fold_kernel_s2d as two tiny relabel matmuls + ONE transpose.
 
     The 16-phase slice/pad/transpose fold materializes 16 intermediates
-    whose minor dims (c=8, s_out~33 of 128 lanes) tile poorly (~1.5 ms
-    of the 5.06 ms r4 headline step).  The fold is separable per spatial
-    axis — K4[.., 4*DY+qy-py, ..] is a relabel dy -> (DY, qy, py) — so
-    contracting each kernel axis with the static 0/1 matrix
-    _fold_relabel(d) performs it on the MXU (~0.5 GFLOP total at mo=24)
+    with narrow minor dims (c=8, s_out~33).  The fold is separable per
+    spatial axis — K4[.., 4*DY+qy-py, ..] is a relabel dy -> (DY, qy,
+    py) — so contracting each kernel axis with the static 0/1 matrix
+    _fold_relabel(d) performs it as a matmul (~0.5 GFLOP at mo=24)
     and leaves one dense 8-axis transpose into the final
     (DYe, DXe, (qy,qx,c), (p,s)) layout.  Bit-exact vs fold_kernel_s2d:
     one-hot rows copy bf16 values, zero columns stay exactly zero
-    (tests/test_conv_score.py::test_fold_mm_parity).
-
-    MEASURED SLOWER on v5e (same-session A/B, 102,400 particles,
-    2026-08-19): headline step 5.69 ms vs 5.19 ms base - the final
-    8-axis transpose pays the same lane re-tiling the 16-slice concat
-    does (the (p, s) minor dim interleaves 33-lane chunks across
-    128-lane tiles either way), plus the einsum intermediates.  Kept
-    parity-tested behind TDR_FOLD_MM=1; the remaining fold lever is a
-    Pallas relayout kernel writing (128, 528) blocks directly."""
+    (tests/test_conv_score.py::test_fold_mm_parity).  Off by default
+    (TDR_FOLD_MM=1); its speed on the GPU has not been measured."""
     dr, dc, c, s = kernel.shape
     dye, dxe = s2d_extent(dr), s2d_extent(dc)
     fy = jnp.asarray(_fold_relabel(dr), jnp.bfloat16)
@@ -467,10 +479,8 @@ def cost_field_s2d_k4(
         (ys4, xs4, 0),
         (nyb + dye - 1, nxb + dxe - 1, f * f * C_PAD),
     )
-    # explicit im2col + ONE matmul instead of conv_general_dilated:
-    # XLA's spatial-conv lowering runs this tiny-spatial / huge-channel
-    # shape at ~5% MXU efficiency (measured 2.36 ms vs 1.62 ms for the
-    # matmul formulation at region 128 / mo 24); the static tap slices
+    # explicit im2col + ONE matmul instead of conv_general_dilated
+    # (a tiny-spatial / huge-channel conv); the static tap slices
     # stack into (nyb*nxb, dye*dxe*128) patches whose column order
     # matches k4's (dy, dx, channel) reshape
     pat = jnp.stack(
@@ -573,8 +583,7 @@ def cost_field_s2d_split_i8(
     map4_i8 holds the quantize_channels int8 map (value ~ int * qinv[c],
     folded with the channel scales intact), so absorbing qinv into the
     bf16 kernel per input channel and re-quantizing each OUTPUT column
-    to int8 makes the whole contraction int8 x int8 -> i32 (probe
-    validated hardware-exact: tests/probe_int8_mm.py), dequantized by
+    to int8 makes the whole contraction int8 x int8 -> i32, dequantized by
     per-column scales.  Every column gets a hi/lo residual pair
     (conv_int8 docstring: single-plane rounding zeroes the 39% of cost
     coefficients below half an LSB, a -4% bias), concatenated [hi | lo]
@@ -841,11 +850,8 @@ def make_conv_scorer(
             )
             rows2d = field.reshape(-1, s_out)
             cell = iy * region + ix
-        # ONE (n, s_out) row gather + lane selects instead of separate
-        # element gathers: TPU gathers are descriptor-bound
-        # (~1.7e8 desc/s -> ~0.6 ms per 102k descriptors), so the
-        # tracked mode's three scalar gathers and the init mode's
-        # (n, 2*num_rot) index gather each cost 2-24x one row gather
+        # ONE (n, s_out) row gather + lane selects feed every column
+        # the mode needs
         rows = rows2d[cell]  # (n, s_out)
         if mode == "tracked":
             s = rotation_shift(theta, th)

@@ -1,29 +1,25 @@
-"""Unknown-scale fast path: K discrete scale buckets in ONE crop-kernel pass.
+"""Unknown-scale fast path: K discrete scale buckets in one crop pass.
 
 The reference's global-localization init draws 10 discrete scale
 hypotheses per position (10^{k/10}, /root/reference/src/particle_filter.cpp:19-25,
 state_particle.cpp:14-18) and diffuses them with <=2% multiplicative
 noise per step (state_particle.cpp:71-74).  Until the scale freezes, the
 particle scales therefore stay clustered around few discrete values -
-but they are NOT uniform, so the uniform-f Pallas crop path
-(filter/pallas_score.py) does not apply and round 2 fell back to the
-exact gather (~1.5 s/step at 100k particles: gather-descriptor-bound).
-
-TPU-native fix: the crop kernel already selects a per-tile matrix M from
-a variant table via scalar prefetch (particles sorted by variant key).
-Scale buckets are just MORE VARIANTS:
+but they are NOT uniform, so the uniform-f crop scorer
+(filter/crop_score.py) does not apply as is.  Scale buckets are just
+more kernel matrices:
 
   1. Host-side, cluster the alive log-scales into K <= MAX_BUCKETS
      slots (greedy 1-D clustering with relative tolerance SCALE_RTOL;
      at init the population is exactly the 10 discrete hypotheses, so
      clustering is exact).
-  2. Build M per bucket[, shift-group] at the bucket's effective
-     f_eff = slot*res/mip in one vmapped kernel-build (the x-residual
-     is handled by an in-kernel crop rotate, not an M variant axis).
-  3. Per-bucket mip levels ride a PYRAMID of the stacked DMA map
-     (levels concatenated along rows); a particle's crop origin is
-     offset into its bucket's level.  One kernel invocation scores
-     every particle against its own bucket's M at its own mip.
+  2. Build one M per bucket at the bucket's effective
+     f_eff = slot*res/mip (one vmapped kernel build).
+  3. Per-bucket mip levels ride a PYRAMID of the padded map (levels
+     concatenated along rows); a particle's window origin is offset into
+     its bucket's level.  One crop pass scores every particle against
+     its own bucket's M at its own mip (crop_score.crop_rows orders the
+     particles bucket-major).
 
 Scoring semantics per particle: pose_px uses the particle's OWN
 continuous scale; only the stencil offsets use the bucket's quantized
@@ -34,7 +30,6 @@ still sees the continuous values, so there is nothing to de-quantize.
 
 from __future__ import annotations
 
-import functools
 import os
 from typing import Tuple
 
@@ -42,19 +37,22 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from top_down_renderer_tpu.filter import pallas_score as ps
-from top_down_renderer_tpu.filter.pallas_score import (
-    C_PAD,
-    GW,
-    N_GROUPS,
-    RX,
-    build_m_init,
-    build_m_tracked,
-    crop_dims,
-)
-from top_down_renderer_tpu.filter.scoring import rotation_shift
+from top_down_renderer_tpu.core import struct
+from top_down_renderer_tpu.filter import crop_score as crop
+from top_down_renderer_tpu.filter.conv_score import MAP_PAD
 
-MAX_BUCKETS = 12
+# bucket count cap: each bucket is one more kernel matrix and at most one
+# partly empty particle chunk (crop_score.crop_rows).  16 covers the
+# whole 10-hypothesis init range after diffusion at the coarsest rtol
+# rung (0.9-8.8x: 15 slots at rtol 0.08)
+MAX_BUCKETS = 16
+# static bucket counts the slot table is padded to (fewer recompiles as
+# buckets die off)
+BUCKET_PAD = (2, 4, 8, 12, MAX_BUCKETS)
+# coarsest pyramid level: at the node's initial 4 m/bin range scale the
+# largest init hypotheses (~8.8 px/m after diffusion) reach f = 35 px per
+# range bin, which the mo-12 window covers only at mip 128
+MAX_MIP = 128
 SCALE_RTOL = 0.02  # max |scale - slot| / slot within a bucket
 # clustering tolerance ladder: diffusion (2%/step multiplicative,
 # state_particle.cpp:71-74) spreads the surviving hypotheses into a
@@ -80,36 +78,21 @@ def multi_mo(scale_spread: float = float("inf")) -> int:
     of the scale posterior (max/min ratio of the alive scales).
 
     mo=12 scores every bucket one mip level coarser than the f_eff <= 1
-    assignment (f_eff <= 0.5: stencil NN granularity 2 mip px), halving
-    the crop rows/lanes (contraction k 28672 -> 8192, crop DMA 35 ->
-    12 KB per particle).  mo=24 is finest-mip granularity.
-
-    Measured tradeoff (TPU v5e, 102,400 particles bench / 20,480
-    drive, seed-matched 3-run unknown-scale city drives,
-    benchmarks/loc_results.json):
-
-      fixed mo=24:        7.96 m mean  (10.81/4.65/8.39), rel scale
-                          err 0.9-2.6%; multi regimes 30.7/43.9
-                          steps/s (BELOW the >=50 north-star)
-      fixed mo=12:       13.11 m mean  (2 runs), rel err 3.4-4.6%;
-                          regimes 53.1/79.5 steps/s
-      adaptive @ 1.20:   11.68 m mean  (7.97/8.99/18.05) - the gate
-                          fired too late: the posterior spends most of
-                          the pre-freeze phase at spread 1.2-2, scored
-                          coarse, and the frozen scale inherits the
-                          mip-2 quantization error
+    assignment (f_eff <= 0.5: stencil NN granularity 2 mip px), with a
+    4x smaller window; mo=24 is finest-mip granularity.
 
     The multi path only runs for the ~50-100 pre-freeze steps of a
     drive, but the scale it freezes poisons (or doesn't) the entire
     remaining drive - so precision wins whenever <=2 adjacent
     hypotheses remain (spread <= 1.6) and coarse speed is reserved for
     the genuinely multi-hypothesis culling phase (the 10 discrete init
-    hypotheses span 7.9x).  (A bucket-count gate does NOT work:
-    diffusion keeps the blob split across 3-8 rtol-width slots all the
-    way to the freeze, so kp never drops to the init-distinct range.)
-    TDR_MULTI_MO=12|24 forces a fixed value for A/B sweeps (bench.py
-    BENCH_MULTI=1 measures the 10-hypothesis init population = mo 12
-    under the adaptive default)."""
+    hypotheses span 7.9x).  In the earlier seed-matched 3-run
+    unknown-scale city drives, fixed mo=24 froze a better scale than
+    fixed mo=12, and a gate at spread 1.20 fired too late to help.  (A
+    bucket-count gate does NOT work: diffusion keeps the blob split
+    across 3-8 rtol-width slots all the way to the freeze, so kp never
+    drops to the init-distinct range.)  TDR_MULTI_MO=12|24 forces a
+    fixed value for A/B sweeps."""
     v = os.environ.get("TDR_MULTI_MO", "")
     if v:
         v = int(v)
@@ -149,7 +132,7 @@ def cluster_scales(
 
 def mip_for_f(f: float, fmax: float = 1.0) -> int | None:
     """Smallest power-of-2 mip with f/mip <= fmax, or None if even
-    mip=64 saturates (callers fall back to the exact gather).
+    MAX_MIP saturates (callers fall back to the exact gather).
 
     fmax is the largest per-mip-pixel stencil step the static MO_MULTI
     crop bucket covers: MO_MULTI / (range_bins - 1).  The default 1.0
@@ -158,192 +141,62 @@ def mip_for_f(f: float, fmax: float = 1.0) -> int | None:
     smaller fmax so no stencil offset lands outside the crop."""
     m = 1
     while f / m > fmax:
-        if m >= 64:
+        if m >= MAX_MIP:
             return None
         m *= 2
     return m
 
 
 # ---------------------------------------------------------------------
-# Mip-pyramid stacked maps
+# Mip pyramid
 # ---------------------------------------------------------------------
-
-from flax import struct
 
 
 @struct.dataclass
 class PyramidMaps:
-    """Stacked DMA map with several mip levels concatenated along rows.
+    """Zero-padded mip levels of the packed map stacked along rows.
 
-    Level l occupies rows [row_off[l], row_off[l] + hp[l]) of each of
-    the 8 y-shifted copies; all levels share the column width of the
-    finest level (coarser levels are zero-padded right).  Stored int8
-    like PaddedMaps.stacked: the full-res map is quantized ONCE and
-    every level subsamples the same quantized values, so one (8,) qinv
-    dequantizes all levels (folded into the M builds)."""
+    Level l (a mips[l]-strided subsample) occupies rows
+    [row_off[l], row_off[l] + h[l] + 2*pad) of `padded`, with a
+    `pad`-pixel zero border on every side; all levels share the width
+    of the finest (coarser ones are zero-padded right)."""
 
-    stacked: jnp.ndarray  # (8, H_tot, Wp_max*8) int8 ((.., Wp_max*4)
-    #                       nibble-packed when i4)
-    qinv: jnp.ndarray = None  # (8,) f32 per-channel dequant multipliers
+    padded: jnp.ndarray  # (H_tot, W_max, 8) bf16
     mips: Tuple[int, ...] = struct.field(pytree_node=False, default=())
     row_off: Tuple[int, ...] = struct.field(pytree_node=False, default=())
-    hp: Tuple[int, ...] = struct.field(pytree_node=False, default=())
-    wp: Tuple[int, ...] = struct.field(pytree_node=False, default=())
+    h: Tuple[int, ...] = struct.field(pytree_node=False, default=())
+    w: Tuple[int, ...] = struct.field(pytree_node=False, default=())
     pad: int = struct.field(pytree_node=False, default=0)
-    i4: bool = struct.field(pytree_node=False, default=False)
 
 
 def build_pyramid_maps(
-    packed: jnp.ndarray, mips: Tuple[int, ...], pad: int = ps.MAP_PAD
+    packed: jnp.ndarray, mips: Tuple[int, ...], pad: int = MAP_PAD
 ) -> PyramidMaps:
-    """(H, W, 8) f32 full-res packed map -> pyramid stack over `mips`.
-
-    TDR_MAP_INT4=1 stores the stack nibble-packed (see pallas_score's
-    int4 layout note); every level subsamples the SAME quantized
-    values, so one (8,) qinv covers all levels either way."""
-    i4 = ps.map_int4()
-    cb = 4 if i4 else C_PAD  # bytes per pixel
-    if i4:
-        pq, qinv = ps.quantize_channels_int4(packed)
-    else:
-        pq, qinv = ps.quantize_channels(packed)
-    hps, wps, offs = [], [], []
-    off = 0
-    p2s = []
-    for m in mips:
-        p = jnp.pad(pq[::m, ::m], ((pad, pad), (pad, pad), (0, 0)))
-        hp, wp = p.shape[0], p.shape[1]
-        p2s.append(p.reshape(hp, wp * cb))
-        hps.append(hp)
-        wps.append(wp)
+    """(H, W, 8) f32 full-res packed map -> pyramid over `mips`."""
+    levels = [packed[::m, ::m].astype(jnp.bfloat16) for m in mips]
+    wmax = max(lv.shape[1] for lv in levels) + 2 * pad
+    offs, off = [], 0
+    for lv in levels:
         offs.append(off)
-        off += hp
-    wmax = max(x.shape[1] for x in p2s)
-    p2s = [
-        jnp.pad(x, ((0, 0), (0, wmax - x.shape[1]))) for x in p2s
-    ]
-    big = jnp.concatenate(p2s + [jnp.zeros((8, wmax), jnp.int8)], 0)
-    h_tot = big.shape[0] - 8
-    stacked = jnp.stack([big[k : k + h_tot] for k in range(8)])
+        off += lv.shape[0] + 2 * pad
+    padded = jnp.concatenate(
+        [
+            jnp.pad(
+                lv,
+                ((pad, pad), (pad, wmax - lv.shape[1] - pad), (0, 0)),
+            )
+            for lv in levels
+        ],
+        axis=0,
+    )
     return PyramidMaps(
-        stacked=stacked,
-        qinv=qinv,
+        padded=padded,
         mips=tuple(mips),
         row_off=tuple(offs),
-        hp=tuple(hps),
-        wp=tuple(wps),
+        h=tuple(int(lv.shape[0]) for lv in levels),
+        w=tuple(int(lv.shape[1]) for lv in levels),
         pad=pad,
-        i4=i4,
     )
-
-
-def _origins_pyramid(
-    center_px: jnp.ndarray,
-    bucket: jnp.ndarray,
-    pyr: PyramidMaps,
-    bucket_mip_idx: Tuple[int, ...],  # static: bucket -> pyramid level
-    mo: int,
-    map_resolution: float,
-):
-    """Per-particle crop origin inside the particle's bucket's pyramid
-    level.  Returns (ry, y8, xe, rx, in_range).
-
-    The four per-bucket table lookups ride ONE (n, K) one-hot f32
-    matmul instead of four (n,)-from-(K,) gathers: TPU gathers are
-    descriptor-bound at ~1.7e8/s, so each gather costs ~0.6 ms at 102k
-    particles while the matmul is ~10 MFLOP (exact: table values are
-    small ints, single-term one-hot rows)."""
-    dr, dc = crop_dims(mo)
-    pad = pyr.pad
-    k = len(bucket_mip_idx)
-    tbl = jnp.asarray(
-        [
-            [
-                float(pyr.mips[i]),
-                float(pyr.row_off[i]),
-                float(pyr.hp[i]),
-                float(pyr.wp[i]),
-            ]
-            for i in bucket_mip_idx
-        ],
-        jnp.float32,
-    )  # (K, 4)
-    oh = (
-        bucket[:, None] == jnp.arange(k, dtype=bucket.dtype)
-    ).astype(jnp.float32)
-    vals = jnp.dot(oh, tbl, preferred_element_type=jnp.float32)
-    mips = vals[:, 0]
-    row0 = vals[:, 1].astype(jnp.int32)
-    hp_l = vals[:, 2].astype(jnp.int32)
-    wp_l = vals[:, 3].astype(jnp.int32)
-    cy = jnp.round(
-        center_px[:, 1] / (map_resolution * mips)
-    ).astype(jnp.int32)
-    cx = jnp.round(
-        center_px[:, 0] / (map_resolution * mips)
-    ).astype(jnp.int32)
-    y0l = cy - dr // 2 + pad  # within-level row
-    if pyr.i4:
-        dc = ps.crop_cols_i4(mo)
-        x0 = cx - (mo + 1) + pad
-    else:
-        x0 = cx - (dc - 16) // 2 + pad
-    in_range = (
-        (y0l >= 0)
-        & (y0l <= hp_l - dr)
-        & (x0 >= 0)
-        & (x0 <= wp_l - dc)
-    )
-    y0 = jnp.where(in_range, y0l + row0, 0)
-    x0c = jnp.where(in_range, x0, 0)
-    ry = y0 % 8
-    y8 = (y0 - ry) // 8
-    if pyr.i4:
-        rx = x0c % ps.I4_RX
-        xe = (x0c - rx) // 32  # 128-lane tiles of 4 bytes/px
-    else:
-        rx = x0c % RX
-        xe = (x0c - rx) * C_PAD // 128
-    return ry, y8, xe, rx, in_range
-
-
-# ---------------------------------------------------------------------
-# Multi-bucket M builds (vmapped single-bucket builders)
-# ---------------------------------------------------------------------
-
-
-def build_m_init_multi(scan, class_weights, stencil, f_eff, mo, num_rot,
-                       qinv=None, with_amax=False, i4=False):
-    """(K, 2*num_rot+2, Kext): one theta-search M per bucket (the
-    kernel handles the x-residual by rotating the crop; _run_kernel
-    zero-pads the unused columns post-quant).  f_eff: (K,) effective
-    scale*res/mip per bucket.  with_amax also returns (K, 2*num_rot+2)
-    per-column amax from the build pass (see _build_base_t_from_pix)."""
-    out = jax.vmap(
-        lambda f: build_m_init(
-            scan, class_weights, stencil, f, mo, num_rot, qinv,
-            with_amax, i4=i4,
-        )
-    )(f_eff)  # (K, 1, s_m, k)[, (K, 1, s_m)]
-    if with_amax:
-        m, am = out
-        return m.reshape(-1, *m.shape[2:]), am.reshape(-1, am.shape[2])
-    return out.reshape(-1, *out.shape[2:])
-
-
-def build_m_tracked_multi(scan, class_weights, stencil, f_eff, mo,
-                          qinv=None, with_amax=False, i4=False):
-    """(K*N_GROUPS, 2*GW+2, Kext): tracked variant table, bucket-major
-    (used columns only; _run_kernel zero-pads post-quant).  with_amax
-    also returns (K*N_GROUPS, 2*GW+2) per-column amax."""
-    out = jax.vmap(
-        lambda f: build_m_tracked(scan, class_weights, stencil, f, mo,
-                                  qinv, with_amax, i4=i4)
-    )(f_eff)  # (K, N_GROUPS, s_m, k)[, (K, N_GROUPS, s_m)]
-    if with_amax:
-        m, am = out
-        return m.reshape(-1, *m.shape[2:]), am.reshape(-1, am.shape[2])
-    return out.reshape(-1, *out.shape[2:])
 
 
 # ---------------------------------------------------------------------
@@ -360,152 +213,76 @@ def assign_buckets(scale: jnp.ndarray, slot_vals: jnp.ndarray):
     return jnp.argmin(d, axis=1).astype(jnp.int32)
 
 
+def _multi_rows(pyr, bucket_mip_idx, mo, mode, num_rot, map_resolution,
+                stencil, scan, class_weights, center_px, scale,
+                slot_vals, res):
+    """(n, S) crop rows, each particle scored with its bucket's M on its
+    bucket's pyramid level."""
+    th = stencil.shape[0]
+    mips_b = jnp.asarray(
+        [pyr.mips[i] for i in bucket_mip_idx], jnp.float32
+    )
+    f_eff = slot_vals * res / mips_b  # (K,)
+    kernels = jax.vmap(
+        lambda f: crop.kernel_matrix(
+            scan, class_weights, stencil, f, mo, mode, num_rot, th
+        )
+    )(f_eff)
+    bucket = assign_buckets(scale, slot_vals)
+    lvl = jnp.asarray(
+        [[pyr.row_off[i], pyr.h[i], pyr.w[i]] for i in bucket_mip_idx],
+        jnp.int32,
+    )[bucket]  # (n, 3)
+    oy, ox = crop.window_origins(
+        center_px, map_resolution * mips_b[bucket], mo, lvl[:, 1],
+        lvl[:, 2], pyr.pad,
+    )
+    return crop.crop_rows(
+        pyr.padded, oy + lvl[:, 0], ox, kernels, bucket, mo
+    )
+
+
 def make_score_init_multi(
-    n_buckets: int,
     bucket_mip_idx: Tuple[int, ...],
     num_rot: int = 40,
     map_resolution: float = 1.0,
-    interpret: bool = False,
     mo: int = MO_MULTI,
-    sel: bool = False,
 ):
-    """Theta-search scorer over K scale buckets in one kernel pass.
-
-    sel=True folds the select_init_cost epilogue into the kernel
-    (pallas_score sel_init) and returns (best_cost, best_theta, kf)
-    via distinct-slot scatters (see pallas_score.make_score_init)."""
+    """Theta-search scorer over K scale buckets (bucket k scores on
+    pyramid level bucket_mip_idx[k]): returns
+    score(pyr, stencil, scan, cw, center_px, scale, slot_vals, res)
+    -> (nums (N, num_rot), dens (N, num_rot), kf (N,))."""
 
     def score(pyr, stencil, scan, class_weights, center_px, scale,
               slot_vals, res):
         th, r, _ = stencil.shape
-        p_tile = ps.init_p_tile(mo)
-        mips = jnp.asarray(
-            [pyr.mips[i] for i in bucket_mip_idx], jnp.float32
+        rows = _multi_rows(
+            pyr, bucket_mip_idx, mo, "init", num_rot, map_resolution,
+            stencil, scan, class_weights, center_px, scale, slot_vals,
+            res,
         )
-        f_eff = slot_vals * res / mips  # (K,)
-        rxm = ps.I4_RX if pyr.i4 else RX
-        m_var, m_amax = build_m_init_multi(
-            scan, class_weights, stencil, f_eff, mo, num_rot, pyr.qinv,
-            with_amax=True, i4=pyr.i4,
-        )
-        bucket = assign_buckets(scale, slot_vals)
-        ry, y8, xe, rx, in_range = _origins_pyramid(
-            center_px, bucket, pyr, bucket_mip_idx, mo, map_resolution
-        )
-        key = (bucket * rxm + rx).astype(jnp.int32)
-        pos, tile_midx, n_pad = ps._group_layout(
-            key, n_buckets * rxm, p_tile
-        )
-        origins = jnp.zeros((n_pad, 4), jnp.int32)
-        origins = origins.at[pos].set(
-            jnp.stack([ry, y8, xe, jnp.zeros_like(ry)], axis=-1)
-        )
-        lokf = not ps.m_hilo()
-        out = ps._run_kernel(
-            pyr.stacked, origins, tile_midx, m_var, mo, p_tile, 128,
-            interpret, sel_init=(num_rot if sel else 0),
-            kf_thresh=0.5 * th * r, lokf=lokf, kf_col=2 * num_rot,
-            amax=m_amax, i4=pyr.i4,
-        )
-        if sel:
-            n = center_px.shape[0]
-            inv = jnp.full((n_pad,), n, jnp.int32).at[pos].set(
-                jnp.arange(n, dtype=jnp.int32)
-            )
-            best = jnp.zeros(n, jnp.float32).at[inv].set(
-                out[:, 0], mode="drop"
-            )
-            bk = jnp.zeros(n, jnp.float32).at[inv].set(
-                out[:, 1], mode="drop"
-            )
-            kf_cnt = jnp.zeros(n, jnp.float32).at[inv].set(
-                out[:, 2], mode="drop"
-            )
-            flt_max = float(np.finfo(np.float32).max)
-            best = jnp.where(in_range, best, flt_max)
-            bk = jnp.where(in_range, bk, 0.0)
-            kf = jnp.where(in_range, kf_cnt / (th * r), 0.0)
-            best_theta = bk * (2.0 * np.pi / num_rot)
-            return best, best_theta, kf
-        rows = out[pos]
-        costs = rows[:, :num_rot]
-        norms = rows[:, num_rot : 2 * num_rot]
-        kf_cnt = rows[:, 2 * num_rot]
-        if lokf:
-            kf_cnt = kf_cnt + rows[:, 2 * num_rot + 1]
-        kf = jnp.where(in_range, kf_cnt / (th * r), 0.0)
-        costs = jnp.where(in_range[:, None], costs, 0.0)
-        norms = jnp.where(in_range[:, None], norms, 0.0)
-        return costs, norms, kf
+        return crop.init_split(rows, num_rot, th, r)
 
     return score
 
 
 def make_score_tracked_multi(
-    n_buckets: int,
     bucket_mip_idx: Tuple[int, ...],
     map_resolution: float = 1.0,
-    interpret: bool = False,
     mo: int = MO_MULTI,
 ):
-    """Tracked-mode scorer over K scale buckets in one kernel pass."""
+    """Tracked-mode scorer over K scale buckets: returns
+    score(pyr, stencil, scan, cw, center_px, theta, scale, slot_vals,
+    res) -> (cost_num, norm, kf) at each particle's rotation shift."""
 
     def score(pyr, stencil, scan, class_weights, center_px, theta,
               scale, slot_vals, res):
         th, r, _ = stencil.shape
-        p_tile = ps.tracked_p_tile(mo, multi=True)
-        mips = jnp.asarray(
-            [pyr.mips[i] for i in bucket_mip_idx], jnp.float32
+        rows = _multi_rows(
+            pyr, bucket_mip_idx, mo, "tracked", 0, map_resolution,
+            stencil, scan, class_weights, center_px, scale, slot_vals,
+            res,
         )
-        f_eff = slot_vals * res / mips
-        rxm = ps.I4_RX if pyr.i4 else RX
-        m_var, m_amax = build_m_tracked_multi(
-            scan, class_weights, stencil, f_eff, mo, pyr.qinv,
-            with_amax=True, i4=pyr.i4,
-        )
-        bucket = assign_buckets(scale, slot_vals)
-        s = rotation_shift(theta, th)
-        g = s // GW
-        ry, y8, xe, rx, in_range = _origins_pyramid(
-            center_px, bucket, pyr, bucket_mip_idx, mo, map_resolution
-        )
-        # variant(bucket, g)-major key (kernel: divmod(key, rxm))
-        key = (
-            (bucket * N_GROUPS + g) * rxm + rx
-        ).astype(jnp.int32)
-        pos, tile_midx, n_pad = ps._group_layout(
-            key, n_buckets * rxm * N_GROUPS, p_tile
-        )
-        origins = jnp.zeros((n_pad, 4), jnp.int32)
-        origins = origins.at[pos].set(
-            jnp.stack([ry, y8, xe, jnp.zeros_like(ry)], axis=-1)
-        )
-        # in-kernel window-column select + distinct-slot scatter
-        # readback (see pallas_score.make_score_tracked)
-        n = center_px.shape[0]
-        local = s - g * GW
-        loc_pad = jnp.zeros((n_pad, 1), jnp.int32).at[pos, 0].set(local)
-        out = ps._run_kernel(
-            pyr.stacked, origins, tile_midx, m_var, mo, p_tile, 64,
-            interpret, sel=True, locals_=loc_pad,
-            lokf=not ps.m_hilo(), kf_col=2 * GW, amax=m_amax,
-            i4=pyr.i4,
-        )
-        inv = jnp.full((n_pad,), n, jnp.int32).at[pos].set(
-            jnp.arange(n, dtype=jnp.int32)
-        )
-        cost = jnp.zeros(n, jnp.float32).at[inv].set(
-            out[:, 0], mode="drop"
-        )
-        norm = jnp.zeros(n, jnp.float32).at[inv].set(
-            out[:, 1], mode="drop"
-        )
-        kf_cnt = jnp.zeros(n, jnp.float32).at[inv].set(
-            out[:, 2], mode="drop"
-        )
-        kf = jnp.where(in_range, kf_cnt / (th * r), 0.0)
-        cost = jnp.where(in_range, cost, 0.0)
-        norm = jnp.where(in_range, norm, 0.0)
-        return cost, norm, kf
+        return crop.tracked_select(rows, theta, th, r)
 
     return score

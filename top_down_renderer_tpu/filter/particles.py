@@ -61,7 +61,7 @@ def _sample_positions_on_road(
         # no road anywhere reachable - fall back to uniform (the reference
         # would spin forever in its while(true) loop; we degrade gracefully)
         print(
-            "[tdr-tpu] warning: no road found for "
+            "[tdr] warning: no road found for "
             f"{len(todo)} particles; falling back to uniform init"
         )
         out[todo] = rng.random((len(todo), 2)) * map_size_xy[None, :]

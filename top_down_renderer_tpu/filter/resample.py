@@ -12,20 +12,17 @@ selects them.
 
 from __future__ import annotations
 
-import functools
 import os
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from top_down_renderer_tpu.core.grids import Particles
 
 
 def resample_via() -> str:
-    """TDR_RESAMPLE=gather|scatter|pallas selects the source-row
-    duplication formulation (default gather; see each impl's note)."""
+    """TDR_RESAMPLE=gather|scatter selects the source-row duplication
+    formulation (default gather; see each impl's note)."""
     return os.environ.get("TDR_RESAMPLE", "gather")
 
 
@@ -38,9 +35,9 @@ def _systematic_indices(
     """Source index per output slot, j[i] = first src with cumsum > u_i.
 
     Because both u_i = (i+shift)/n_new and the cumsum are sorted, this is
-    computed WITHOUT searchsorted (whose log-N gather rounds dominate the
-    resample cost on TPU): per-source output counts via the inverse CDF,
-    then segment starts scattered and forward-filled with a cummax.
+    computed WITHOUT searchsorted (log-N rounds of gathers): per-source
+    output counts via the inverse CDF, then segment starts scattered and
+    forward-filled with a cummax.
     """
     n = weights.shape[0]
     csum = jnp.cumsum(weights)
@@ -65,23 +62,15 @@ def _segment_rows_scatter(
     n_active_old: jnp.ndarray,
     shift: jnp.ndarray,
 ) -> jnp.ndarray:
-    """packed[j] WITHOUT the row gather: TPU gathers sustain only
-    ~1.7e8 descriptors/s (one per row -> ~0.6 ms at 102k), while a
-    scatter into DISTINCT slots is ~free (~0.02 ms at the same
-    descriptor count).
+    """packed[j] WITHOUT the row gather.
 
     Because j is non-decreasing, the resample output is a sequence of
     constant-row segments: scatter each selected source's row at its
     segment start (starts are distinct by construction: f is
     non-decreasing, so f_prev values of selected sources are strictly
     increasing), then forward-fill rows with a log-N associative scan.
-
-    MEASURED SLOWER than the gather on v5e (bench.py headline 6.66 vs
-    5.26 ms/step at 102,400): the 17-level tuple associative_scan costs
-    ~1.4 ms of elementwise passes - more than the gather it replaces.
-    Kept (parity-tested) as the reference formulation for a future
-    single-kernel forward-fill; systematic_resample defaults to the
-    gather."""
+    Parity-tested against the gather, which systematic_resample uses by
+    default."""
     n = weights.shape[0]
     csum = jnp.cumsum(weights)
     nn = jnp.maximum(n_new, 1).astype(jnp.float32)
@@ -110,113 +99,6 @@ def _segment_rows_scatter(
     return jnp.where(valid[:, None], rows, packed[0])
 
 
-_FILL_L = 8192  # forward-fill kernel lane-block width
-
-
-def _fill_kernel(rows_ref, valid_ref, out_ref, carry, *, L: int):
-    """Sequential-grid forward fill over (8, L) lane blocks.
-
-    Within a block: log2(L) static lane-rolls propagate the last valid
-    row rightward.  Across blocks: the previous block's final row rides
-    a VMEM scratch (the TPU grid is sequential).  The caller guarantees
-    lane 0 of block 0 is valid, so the carry is never read before it
-    is written."""
-    rows = rows_ref[...]  # (8, L) f32
-    v = valid_ref[...]  # (1, L) i32 0/1
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, L), 1)
-    k = 1
-    while k < L:
-        rolled = pltpu.roll(rows, k, 1)
-        vroll = pltpu.roll(v, k, 1)
-        take = (v == 0) & (vroll != 0) & (lane >= k)
-        rows = jnp.where(take, rolled, rows)
-        v = jnp.where(take, 1, v)
-        k *= 2
-    # lanes with no valid predecessor in-block take the carry row.
-    # Block 0's lane 0 is valid by caller guarantee, so after the
-    # log-fill every block-0 lane is valid and the uninitialized carry
-    # is never selected.
-    filled = jnp.where(v != 0, rows, carry[:, :1])
-    out_ref[...] = filled
-    carry[:, :1] = filled[:, L - 1 :]
-
-
-@functools.partial(
-    jax.jit, static_argnames=("interpret", "block_l")
-)
-def _fill_rows(
-    rows0: jnp.ndarray,  # (N, 8) f32, rows at segment starts
-    valid0: jnp.ndarray,  # (N,) bool
-    interpret: bool = False,
-    block_l: int | None = None,
-) -> jnp.ndarray:
-    """Forward-fill valid rows over invalid slots, (8, N)-transposed
-    through a Pallas kernel: the row-granular alternatives both lose
-    on TPU - a row gather is descriptor-bound (~0.6 ms at 102k) and
-    the XLA associative_scan makes ~17 elementwise passes over the
-    whole array (~1.4 ms).  The kernel does the same log-scan on
-    lane-major blocks in VMEM."""
-    n = rows0.shape[0]
-    fl = block_l or _FILL_L
-    if n >= fl:
-        L = fl
-    else:
-        L = -(-n // 128) * 128  # single lane-tile-aligned block
-    np_ = -(-n // L) * L
-    rt = jnp.pad(rows0, ((0, np_ - n), (0, 0))).T  # (8, np_)
-    vt = jnp.pad(valid0.astype(jnp.int32), (0, np_ - n))[None]
-    out = pl.pallas_call(
-        functools.partial(_fill_kernel, L=L),
-        grid=(np_ // L,),
-        in_specs=[
-            pl.BlockSpec((8, L), lambda i: (0, i)),
-            pl.BlockSpec((1, L), lambda i: (0, i)),
-        ],
-        out_specs=pl.BlockSpec((8, L), lambda i: (0, i)),
-        out_shape=jax.ShapeDtypeStruct((8, np_), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((8, 128), jnp.float32)],
-        interpret=interpret,
-    )(rt, vt)
-    return out[:, :n].T
-
-
-def _segment_rows_pallas(
-    packed: jnp.ndarray,
-    weights: jnp.ndarray,
-    n_new: jnp.ndarray,
-    n_active_old: jnp.ndarray,
-    shift: jnp.ndarray,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Scatter-starts + Pallas forward-fill formulation of packed[j]
-    (TDR_RESAMPLE=pallas): the distinct-slot scatter is ~free and the
-    fill streams the array once through VMEM instead of the gather's
-    102k descriptors."""
-    n = weights.shape[0]
-    csum = jnp.cumsum(weights)
-    nn = jnp.maximum(n_new, 1).astype(jnp.float32)
-    f = jnp.clip(
-        jnp.ceil(csum * nn - shift), 0.0, nn
-    ).astype(jnp.int32)
-    f_prev = jnp.concatenate([jnp.zeros(1, jnp.int32), f[:-1]])
-    has = (f > f_prev) & (
-        jnp.arange(n) < jnp.maximum(n_active_old, 1)
-    )
-    pos = jnp.where(has, f_prev, n)  # drop empty sources
-    rows0 = jnp.zeros_like(packed).at[pos].set(packed, mode="drop")
-    valid0 = jnp.zeros(n, bool).at[pos].set(True, mode="drop")
-    # pin lane 0 valid: slot 0 is a segment start whenever any source
-    # was selected; the degenerate all-zero-weights case takes
-    # packed[0], matching the gather path's zeros-base cummax
-    rows0 = rows0.at[0].set(
-        jnp.where(valid0[0], rows0[0], packed[0])
-    )
-    valid0 = valid0.at[0].set(True)
-    return _fill_rows(
-        rows0, valid0, interpret=interpret, block_l=_FILL_L
-    )
-
-
 def systematic_resample(
     particles: Particles,
     weights: jnp.ndarray,
@@ -225,27 +107,20 @@ def systematic_resample(
     key: jax.Array,
     via_scatter: bool = False,
     via: str | None = None,
-    interpret: bool = False,
 ) -> Particles:
     """Returns the resampled particle set with n_new alive particles."""
     n = particles.n_max
     shift = jax.random.uniform(key)
     alive = jnp.arange(n) < n_new
     w_new = jnp.where(alive, 1.0 / jnp.maximum(n_new, 1), 0.0)
-    # ONE (N, 8) row op instead of 8 per-field ones: TPU gathers are
-    # descriptor-bound (~1.7e8 desc/s), so packing the fields cuts
-    # the descriptor count 8x; the pack/unpack copies fuse away.
+    # ONE (N, 8) row gather instead of 8 per-field ones; the
+    # pack/unpack copies fuse away.
     packed = pack_fields(particles)
     if via is None:
         via = "scatter" if via_scatter else resample_via()
     if via == "scatter":
         g = _segment_rows_scatter(
             packed, weights, n_new, n_active_old, shift
-        )
-    elif via == "pallas":
-        g = _segment_rows_pallas(
-            packed, weights, n_new, n_active_old, shift,
-            interpret=interpret,
         )
     else:
         j = _systematic_indices(weights, n_new, n_active_old, shift)

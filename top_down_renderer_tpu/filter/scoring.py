@@ -1,7 +1,8 @@
 """Particle scoring: the hot loop.
 
 Parity port of StateParticle::computeWeight / getCostForRot
-(/root/reference/src/state_particle.cpp:112-219) redesigned for TPU:
+(/root/reference/src/state_particle.cpp:112-219) redesigned for batched
+matmul hardware:
 
 The reference scores one particle by (a) gathering the per-class polar
 local window around the particle pose (top_down_map_polar.cpp:21-76), then
@@ -13,9 +14,9 @@ and correlating against the window (state_particle.cpp:123-143):
   norm(s)  = sum_{theta,r} (sum_c scan_c)[(theta+s)%Th, r] * known[theta,r]
   cost(s) /= norm(s);  NaN if known fraction < 0.5   (:117-120)
 
-TPU mapping: the rotation axis is shared by all particles, so we build a
+Mapping: the rotation axis is shared by all particles, so we build a
 rolled-scan CIRCULANT once per step and compute every particle x every
-shift as ONE matmul on the MXU:
+shift as ONE matmul:
 
   costs[p, s] = gathered[p, (theta, r, c)] @ circulant[(theta, r, c), s]
 
@@ -45,7 +46,7 @@ def build_circulants(
     """
     c, th, r = scan.shape
     wscan = scan * (0.01 * class_weights)[:, None, None]
-    # static rolls (a gather-based roll is descriptor-bound on TPU)
+    # static rolls (no gather-based roll)
     rolled = jnp.stack(
         [jnp.roll(wscan, -s, axis=1) for s in range(th)], axis=2
     )  # (C, Th, S, R): rolled[c, t, s] = wscan[c, (t+s) % Th]
@@ -66,11 +67,9 @@ def circulants_at_shifts(
     Returns (cost_sel (Th*R*C, S), norm_sel (Th*R, S)) with
     cost_sel[(t, r, c), j] = 0.01 * w_c * scan_c[(t+shifts[j]) % Th, r].
 
-    build_circulants materializes all Th shifts as Th static rolls
-    (~Th copy ops, ~2.6 ms in-graph on v5e); the crop-kernel M builders
-    need only the <=112 window/search shifts, fetched here as ONE row
-    gather on a theta-doubled scan (Th*S ~ 11k row descriptors at
-    ~1.7e8 desc/s ~ 0.1 ms).  shifts must lie in [0, Th)."""
+    build_circulants materializes all Th shifts as Th static rolls;
+    this fetches only the requested shifts as ONE row gather on a
+    theta-doubled scan.  shifts must lie in [0, Th)."""
     c, th, r = scan.shape
     wscan = scan * (0.01 * class_weights)[:, None, None]
     rows = jnp.concatenate([wscan, wscan], axis=1).transpose(
@@ -175,9 +174,9 @@ def shift_mask(
     """(theta_bins,) bool: which rotation shifts are occupied by alive
     particles.
 
-    NOT a scatter: a 100k-descriptor scatter into ~100 slots serializes
-    on colliding updates (~1.4 ms measured on v5e); packing the mask
-    into int32 words with a bitwise-or reduction is ~20 us."""
+    NOT a scatter: a 100k-update scatter into ~100 slots serializes on
+    colliding updates; the mask is packed into int32 words with a
+    bitwise-or reduction instead."""
     words = (theta_bins + 31) // 32
     m = jnp.where(alive, shifts, theta_bins)
     bit = jnp.left_shift(jnp.int32(1), (m % 32).astype(jnp.int32))

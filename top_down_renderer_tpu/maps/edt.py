@@ -1,13 +1,13 @@
 """Jitted truncated Euclidean distance transform.
 
-TPU-native replacement for cv::distanceTransform(DIST_L2, DIST_MASK_PRECISE)
+Array-native replacement for cv::distanceTransform(DIST_L2, DIST_MASK_PRECISE)
 as used by TopDownMap::computeDists (/root/reference/src/top_down_map.cpp:
 289-326): per-class distance maps, scaled by map resolution, truncated at
 50 m, and zeroed on unknown cells.
 
 Algorithm (exact within the truncation radius, Meijster-style separable):
   pass 1 (columns): 1D vertical distance to the nearest seed in the same
-          column, computed with two cumulative scans (O(H log H) on TPU's
+          column, computed with two cumulative scans (O(H log H) on the device's
           associative-scan lowering, fully vectorized over W).
   pass 2 (rows): D^2[i,j] = min_{|dj|<=T} (g[i,j+dj]^2 + dj^2), a
           (2T+1)-tap sliding min over a padded buffer.  Seeds farther than

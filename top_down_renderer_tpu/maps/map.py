@@ -15,7 +15,7 @@ Capability port of TopDownMap / TopDownMapPolar
     (top_down_map_polar.cpp:21-76) -- the hot scoring path has its own
     fused implementation in filter/scoring.py
 
-Device layout (TPU-first): the scoring tensor is channel-last
+Device layout: the scoring tensor is channel-last
 (H, W, C_pad) with the unknown mask folded in as a channel, so one gather
 at (y, x) reads every class distance plus the mask in a single vector.
 """

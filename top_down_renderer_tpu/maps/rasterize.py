@@ -5,7 +5,7 @@ Parity port of TopDownMap::getClasses / samplePts / getRasterMap
 maps (0 inside a class polygon, 1 outside) from SVG polygon lists using the
 even-odd rule, including the exclusive-class resolution (:357-364).
 
-TPU-first design: instead of the reference's per-polygon Eigen loop over a
+Batched design: instead of the reference's per-polygon Eigen loop over a
 flattened pixel array, we batch pixels x edges.  Edges are concatenated per
 class into one padded (E, 5) table (x0, y0, x1, y1, poly_id); the parity
 accumulator XORs crossings per (pixel, polygon) using a segment-sum over

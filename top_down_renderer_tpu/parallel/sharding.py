@@ -1,8 +1,8 @@
-"""Multi-chip scaling: the particle axis over an ICI mesh.
+"""Multi-device scaling: the particle axis over a device mesh.
 
 The reference's only parallel axis is thread-parallel particle scoring
 (std::for_each(std::execution::par, ...), particle_filter.cpp:104-105,
-TBB-backed per CMakeLists.txt:160).  The TPU-native equivalent: particles
+TBB-backed per CMakeLists.txt:160).  The equivalent here: particles
 are a sharded array axis over a 1-D device mesh ('data').  Per step:
 
   propagate / score            - embarrassingly parallel, zero comms
@@ -41,7 +41,6 @@ from top_down_renderer_tpu.core.grids import (
 )
 from top_down_renderer_tpu.filter import gmm as gmm_mod
 from top_down_renderer_tpu.filter.filter import (
-    FLT_MAX,
     compute_weights,
     pose_bbox,
     select_init_cost,
@@ -258,7 +257,7 @@ def make_sharded_step(
     chunk_size: int = 2048,
     axis: str = "data",
 ):
-    """Build the jitted multi-chip step (exact-gather scoring): propagate
+    """Build the jitted multi-device step (exact-gather scoring): propagate
     + update in one compiled program.  n_max must divide evenly by the
     mesh size."""
     n_dev = mesh.devices.size
@@ -340,30 +339,27 @@ def make_sharded_step_multi(
     map_resolution: float,
     theta_bins: int,
     n_max: int,
-    mode: str,  # "tracked" | "init"
-    n_buckets: int,
+    mode: str,  # "tracked" | "init" | "mixed"
     bucket_mip_idx,
     mo: int | None = None,
     k_max: int = 8,
     gmm_every: int = 1,
     axis: str = "data",
-    interpret: bool = False,
 ):
-    """Multi-chip unknown-scale step: K scale buckets scored through ONE
-    Pallas crop-kernel pass per device (filter/multiscale.py), on each
-    device's local particle shard.  The crop kernel is a per-core
-    program, so under shard_map every chip crops only its own
-    n_max/n_dev particles against the replicated mip pyramid - the
-    regime the reference's TBB pool parallelizes uniformly
+    """Multi-device unknown-scale step: K scale buckets scored by the
+    crop scorer (filter/multiscale.py) on each device's local particle
+    shard against the replicated mip pyramid - the regime the
+    reference's TBB pool parallelizes uniformly
     (particle_filter.cpp:104-105) scales the same way here.  The small
-    M-variant build (K buckets x <=7 groups x 64 x Kext bf16) is
-    recomputed per device: cheaper than communicating it.
+    per-bucket kernel build is recomputed per device: cheaper than
+    communicating it.
 
     The deferred propagate is applied EAGERLY on the sharded state
-    before dispatch (exactly like the single-chip multi path: slot
+    before dispatch (exactly like the single-device multi path: slot
     clustering must see post-diffusion scales), so this step carries no
     motion stage; tail semantics match _sharded_tail."""
     from top_down_renderer_tpu.filter import multiscale as ms
+    from top_down_renderer_tpu.filter.filter import make_multi_cost
 
     n_dev = mesh.devices.size
     assert n_max % n_dev == 0, "n_max must be divisible by mesh size"
@@ -371,15 +367,9 @@ def make_sharded_step_multi(
     class_weights = _pad_class_weights(params, num_classes)
     if mo is None:
         mo = ms.multi_mo()
-    if mode in ("tracked", "mixed"):
-        scorer_t = ms.make_score_tracked_multi(
-            n_buckets, bucket_mip_idx, map_resolution, interpret, mo
-        )
-    if mode in ("init", "mixed"):
-        scorer_i = ms.make_score_init_multi(
-            n_buckets, bucket_mip_idx, params.num_rot_search,
-            map_resolution, interpret, mo=mo,
-        )
+    cost_fn = make_multi_cost(
+        params, class_weights, mode, bucket_mip_idx, map_resolution, mo
+    )
 
     def step_fn(
         state: FilterState,
@@ -392,33 +382,7 @@ def make_sharded_step_multi(
     ) -> FilterState:
         p = state.particles  # local shard (n_local)
         key, k_rs, k_gmm = jax.random.split(state.key, 3)
-
-        def tracked_cost():
-            num, den, kf = scorer_t(
-                pyr, stencil, scan, class_weights, p.pose_px(),
-                p.theta, p.scale, slot_vals, res,
-            )
-            cost = num / den
-            return jnp.where(kf < 0.5, jnp.nan, cost)
-
-        def init_cost():
-            nums, dens, kf = scorer_i(
-                pyr, stencil, scan, class_weights, p.pose_px(),
-                p.scale, slot_vals, res,
-            )
-            costs = nums / dens
-            costs = jnp.where(kf[:, None] < 0.5, jnp.nan, costs)
-            return select_init_cost(costs, params.num_rot_search)
-
-        if mode == "tracked":
-            cost, new_theta = tracked_cost(), p.theta
-        elif mode == "init":
-            cost, new_theta = init_cost()
-        else:  # mixed have_init: both flavors, per-particle select
-            cost_t = tracked_cost()
-            cost_i, theta_i = init_cost()
-            cost = jnp.where(p.have_init, cost_t, cost_i)
-            new_theta = jnp.where(p.have_init, p.theta, theta_i)
+        cost, new_theta = cost_fn(p, pyr, stencil, scan, res, slot_vals)
         p = p.replace(
             theta=new_theta, have_init=jnp.ones_like(p.have_init)
         )
@@ -466,10 +430,10 @@ def make_sharded_step_fast(
     axis: str = "data",
     use_s2d: bool = True,
 ):
-    """Multi-chip conv cost-field step (the converged fast path): field
+    """Multi-device conv cost-field step (the converged fast path): field
     ROWS are sharded over the mesh - each device convs its slice of the
     region and one all_gather assembles the small f32 field - so the
-    dominant MXU work scales 1/n_dev.  The particle axis stays sharded
+    dominant matmul work scales 1/n_dev.  The particle axis stays sharded
     end-to-end (propagate, field reads, weights, resample collectives
     as in make_sharded_step).
 
@@ -477,7 +441,7 @@ def make_sharded_step_fast(
     True = space-to-depth phase fold over padded4d (below the
     conv_score.K4_MAX_BYTES kernel gate); False = DIRECT conv over
     padded3d (large kernels, e.g. full-window tracked at mo 48) - the
-    same gate the single-chip path applies (conv_score.py make_conv_
+    same gate the single-device path applies (conv_score.py make_conv_
     scorer), so mesh mode never silently drops to the exact gather.
     The direct path requires region % n_dev == 0 (ParticleFilter's
     dispatch enforces it)."""
@@ -579,8 +543,7 @@ def make_sharded_step_fast(
             ys4, roy = y0 // f4, y0 % f4
             xs4, rox = x0 // f4, x0 % f4
             # this device's slice of the folded field rows; explicit
-            # im2col + matmul like cost_field_s2d_k4 (XLA's conv
-            # lowering runs this shape at ~5% MXU efficiency)
+            # im2col + matmul like cost_field_s2d_k4
             c4 = f4 * f4 * cs.C_PAD
             block = jax.lax.dynamic_slice(
                 mapbuf,
@@ -629,9 +592,7 @@ def make_sharded_step_fast(
             field = jax.lax.all_gather(out_loc, axis, tiled=True)
             rows2d = field.reshape(-1, s_out)
             cell = iy * region + ix
-        # ONE (n_local, s_out) row gather feeds both column sets; lane
-        # selects replace the per-element gathers (descriptor-bound,
-        # see conv_score.make_conv_scorer)
+        # ONE (n_local, s_out) row gather feeds both column sets
         rows = rows2d[cell]
         lane = jnp.arange(s_out, dtype=jnp.int32)[None, :]
 

@@ -10,7 +10,7 @@ Both are computed-but-disabled in the reference's live path
 (top_down_render.cpp:540, state_particle.cpp:145-152) but are part of the
 capability surface.
 
-TPU-first derivation: the reference walks each theta-bin (sorted far->near)
+Batched derivation: the reference walks each theta-bin (sorted far->near)
 or each organized-cloud column with a `last_high_grad` carry.  Inspection of
 the branch structure (scan_renderer_polar.cpp:62-75) shows the carry
 collapses: after processing a point, last_high_grad == (slope > 1) for that

@@ -6,7 +6,7 @@ Parity ports of:
   ScanRenderer::renderSemanticTopDown
     (/root/reference/src/scan_renderer.cpp:55-78)
 
-TPU-first design: the reference's per-point scatter loop becomes one fused
+Batched design: the reference's per-point scatter loop becomes one fused
 scatter-add into a flattened (C*Theta*R) histogram with mode='drop' handling
 every bounds/validity case, jitted with static shapes.  Points are a padded
 (P, 4) array (x, y, z, class); the reference's "skip x==0 && y==0" sentinel

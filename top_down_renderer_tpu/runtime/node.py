@@ -345,7 +345,7 @@ class TopDownRenderNode:
         motion_prior: Optional[PoseStamped],
     ) -> None:
         if not self.map.have_map:
-            print("[tdr-tpu] No map received yet")
+            print("[tdr] No map received yet")
             return
         t0 = time.perf_counter()
         # res must be a traced array: a python float would bake into the
@@ -440,7 +440,7 @@ class TopDownRenderNode:
 
         # scale freeze trigger (:356-360)
         if cov[3, 3] < 0.003 * ml[3] and not self.filter.is_scale_frozen:
-            print(f"[tdr-tpu] Fixed Scale: {ml[3]}")
+            print(f"[tdr] Fixed Scale: {ml[3]}")
             self.filter.freeze_scale()
 
         # convergence gate (:363-365)

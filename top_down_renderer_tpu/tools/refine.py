@@ -7,7 +7,7 @@ accumulate a semantically-labeled 3D occupancy point set into per-class
 (:123-153 - shipped disabled behind `if (false)`; here an explicit flag,
 default off for parity), and write a color visualization (:104-169).
 
-TPU-first: the accumulation over the full trajectory's points is one
+Batched: the accumulation over the full trajectory's points is one
 jitted scatter-add sweep (BASELINE.json config 5); the reference's VTK
 poly-data input becomes a plain points+colors array loaded from npz/ply.
 """
